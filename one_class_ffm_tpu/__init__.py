@@ -1,6 +1,6 @@
-"""one_class_ffm_tpu — a TPU-native one-class field-aware factorization machine framework.
+"""one_class_ffm_tpu — a one-class field-aware factorization machine trainer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 C++ trainer (johncreed/one-class-ffm): one-class collaborative filtering with
 FFM/FM/MF models, solved by alternating block-coordinate Gauss-Newton with
 conjugate gradient, where every unobserved (user, item) pair is a negative
@@ -9,7 +9,7 @@ O(nnz + (m+n)k) without materializing the m x n matrix.
 
 Layout:
   data/      text parsers (.ffm/.fm/.mf), dataset containers, prep pipelines
-  ops/       sparse gather/scatter projection kernels (XLA + Pallas)
+  ops/       sparse gather/scatter and positive-stream ops (XLA)
   models/    field-pair block layout and parameter state
   solver/    Gauss-Newton/CG block solver (the training engine)
   evalx/     full-catalog ranking evaluation (P@K, nDCG@K, ploss, AUC)

@@ -4,7 +4,7 @@ Mirrors the capabilities of the reference ``ImpData`` (reference ffm.h:59-79,
 ffm.cpp:80-294): read → split_fields → transY, plus per-field dims ``Ds``,
 per-feature frequencies ``freq`` and the item popularity prior ``popular``.
 
-TPU-side representation: variable-nnz CSR rows are converted to fixed-width
+Device-side representation: variable-nnz CSR rows are converted to fixed-width
 *padded* per-field arrays ``idx[m, p_f]``/``val[m, p_f]`` (pad entries have
 ``val == 0`` so they vanish in both the projection P = X·W and the scatter
 gradient Xᵀz), and the positive labels to a flat COO stream

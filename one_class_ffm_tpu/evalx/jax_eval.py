@@ -1,11 +1,11 @@
-"""TPU-native full-catalog ranking evaluation.
+"""Full-catalog ranking evaluation on the device.
 
 Re-designs the reference ``init_va``/``validate``/``prec_k``/``ndcg`` path
 (reference ffm.cpp:872-1128) as batched XLA computations:
 
   * per-user score vector z = bt + sum_cross Pva_i . Qva_j over the full item
     catalog (pred_z, ffm.cpp:915-923), as one (chunk, n) matmul per cross
-    block — MXU-friendly instead of per-user dgemv.
+    block — one matmul per chunk instead of per-user dgemv.
   * cold-start users (no features) fall back to the popularity prior
     (ffm.cpp:975-977).
   * repeated destructive argmax (ffm.cpp:1033-1037) becomes
@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import platform
 from ..data.dataset import PaddedFields
 from ..models.blocks import BlockLayout
 from .numpy_metrics import TOP_K_LADDER
@@ -156,7 +157,7 @@ class Evaluator:
         the same user chunk, metric sums are psum'd, and the global top-K
         merges per-shard candidates (payload K*n_dev per user instead of n).
         This is what scales eval past the dense (chunk, n) cliff at n ~ 10M
-        (reference pred_z scales per-user, ffm.cpp:915-923; the dense MXU
+        (reference pred_z scales per-user, ffm.cpp:915-923; the dense
         path cannot hold (chunk, n) at web-scale catalogs)."""
         size = int(mesh.shape[axis])
         if self.meta.n % size != 0:
@@ -411,6 +412,10 @@ class Evaluator:
     def validate(self, params, Q, bt) -> Dict[str, float]:
         """Full evaluation pass; returns the reference's metric dict
         (fractions, not x100) plus AUC."""
+        with platform.precision_scope(self.meta.dtype):
+            return self._validate(params, Q, bt)
+
+    def _validate(self, params, Q, bt) -> Dict[str, float]:
         meta, d = self.meta, self.data
         Pva, at = self._project_users(params)
         nk = len(meta.top_ks)

@@ -1,7 +1,7 @@
 """Numpy reference implementation of the ranking metrics.
 
 Reproduces the reference evaluation semantics exactly (used as the oracle for
-the TPU metrics and as a CPU fallback):
+the device metrics and as a CPU fallback):
 
   * top-K ladder K = 5, 10, 20, 40, 80 (init_va, ffm.cpp:896-909)
   * Precision@K: cumulative hits over the ladder, averaged as

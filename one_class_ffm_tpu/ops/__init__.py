@@ -1,3 +1,3 @@
-from .sparse_ops import project, scatter, project_xla, scatter_xla
+from .sparse_ops import project, scatter
 
-__all__ = ["project", "scatter", "project_xla", "scatter_xla"]
+__all__ = ["project", "scatter"]

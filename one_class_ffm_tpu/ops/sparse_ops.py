@@ -1,4 +1,4 @@
-"""Sparse gather/scatter ops: XLA baselines + Pallas TPU kernels.
+"""Sparse gather/scatter ops, written as plain XLA.
 
 The hot pair (reference UTx/UTX ffm.cpp:314-331 and the X^T z gradient
 scatters in gd_*/hs_*):
@@ -6,48 +6,24 @@ scatters in gd_*/hs_*):
   project: P[i] = sum_s val[i,s] * W[idx[i,s]]     (padded gather-FMA)
   scatter: G[d] = sum_{i,s: idx[i,s]=d} val[i,s] * Z[i]
 
-Measured on a v5e chip (m=131k, p=4, k=32, D=4096, f32, in-jit loop):
-
-  project  XLA take+einsum   86 us     Pallas one-hot matmul   53 us  (1.6x)
-  scatter  XLA segment_sum 4978 us     Pallas one-hot matmul 7282 us  (slower)
-
-The one-hot trick turns the random-access gather into MXU work: for each
-row block, build OneHot(idx) (BM, D) on the fly and matmul against the
-VMEM-resident table.  It wins only while D is small enough that (a) the
-table fits VMEM and (b) the extra BM x D x k FLOPs stay under the gather's
-memory cost — so the dispatcher uses it for side-feature fields (D up to a
-few thousand) and falls back to XLA for id-scale fields.  The scatter
-equivalent is MXU-bound on the transposed one-hot matmul and loses to
-XLA's segment_sum, so scatter always uses XLA.
-
-Direct vectorized int indexing (``w_ref[rows]``) does not lower on TPU
-Mosaic ("Cannot do int indexing on TPU"), which is why the one-hot
-formulation is used.
+On the GPU both are native: an indexed gather and an atomic scatter-add.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
 
+from .. import platform
+
 Array = jax.Array
 
-_BM = 256  # rows per grid step
-_MAX_D_PALLAS = 8192  # one-hot cost and VMEM residency cap
-_VMEM_BUDGET = 8 * 1024 * 1024  # bytes allowed for the table block
 
-
-def project_xla(idx: Array, val: Array, W: Array) -> Array:
-    """P = X W, unrolled over the (small) per-row slot dimension p.
-
-    A single einsum over a materialized (m, p, k) gather OOMs at scale on
-    TPU: the trailing (p, k) dims are tile-padded to (8, 128) — up to 32x
-    memory expansion for p=1, k=32.  Per-slot (m, k) gathers only pay the
-    lane padding on k.
-    """
+def project(idx: Array, val: Array, W: Array) -> Array:
+    """P = X W, unrolled over the (small) per-row slot dimension p: per-slot
+    (m, k) gathers never materialize an (m, p, k) intermediate."""
     p = idx.shape[1]
     out = val[:, 0, None] * W[idx[:, 0]]
     for s in range(1, p):
@@ -55,144 +31,25 @@ def project_xla(idx: Array, val: Array, W: Array) -> Array:
     return out
 
 
-def scatter_xla(idx: Array, val: Array, Z: Array, d: int) -> Array:
-    """G = X^T Z via per-slot segment_sum (same padding rationale as
-    project_xla; pads carry val == 0 so they contribute zeros)."""
-    p = idx.shape[1]
-    out = jax.ops.segment_sum(val[:, 0, None] * Z, idx[:, 0], num_segments=d)
-    for s in range(1, p):
-        out = out + jax.ops.segment_sum(
-            val[:, s, None] * Z, idx[:, s], num_segments=d
-        )
-    return out
-
-
-def _project_kernel(p: int, d: int, k: int, idx_ref, val_ref, w_ref, out_ref):
-    acc = jnp.zeros((idx_ref.shape[0], k), jnp.float32)
-    ar = jax.lax.broadcasted_iota(jnp.int32, (idx_ref.shape[0], d), 1)
-    for s in range(p):
-        oh = (ar == idx_ref[:, s][:, None]).astype(jnp.float32)
-        oh = oh * val_ref[:, s][:, None].astype(jnp.float32)
-        acc = acc + jnp.dot(oh, w_ref[:].astype(jnp.float32),
-                            preferred_element_type=jnp.float32)
-    out_ref[:] = acc.astype(out_ref.dtype)
-
-
-def project_pallas(idx: Array, val: Array, W: Array) -> Array:
-    """One-hot-matmul projection kernel (see module docstring)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, p = idx.shape
-    d, k = W.shape
-    kern = functools.partial(_project_kernel, p, d, k)
-    return pl.pallas_call(
-        kern,
-        grid=(m // _BM,),
-        in_specs=[
-            pl.BlockSpec((_BM, p), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_BM, p), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((_BM, k), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, k), val.dtype),
-    )(idx, val, W)
-
-
-def _pallas_enabled() -> bool:
-    # Opt-in (OCFFM_PALLAS=1): the kernel wins 1.6x on its own, but adds
-    # noticeable compile time to the epoch program; end-to-end benefit is a
-    # few percent (projection is a minor slice of the epoch).  Default off
-    # until the epoch-level win is demonstrated on local TPU hardware.
-    return os.environ.get("OCFFM_PALLAS", "0").lower() in ("1", "on", "true")
-
-
-def _pallas_ok(idx: Array, W: Array) -> bool:
-    m, p = idx.shape
-    d, k = W.shape
-    try:
-        on_tpu = jax.default_backend() not in ("cpu",)
-    except Exception:
-        on_tpu = False
-    return (
-        on_tpu  # Mosaic kernels don't lower on the CPU backend
-        and m % _BM == 0
-        and d <= _MAX_D_PALLAS
-        and d * k * 4 <= _VMEM_BUDGET
-        and W.dtype in (jnp.float32, jnp.bfloat16)
-    )
-
-
-def project(idx: Array, val: Array, W: Array) -> Array:
-    """Dispatching projection: Pallas one-hot when profitable, else XLA."""
-    if _pallas_enabled() and _pallas_ok(idx, W):
-        return project_pallas(idx, val, W)
-    return project_xla(idx, val, W)
-
-
-_ONEHOT_D = int(os.environ.get("OCFFM_ONEHOT_D", 4096))
-_ONEHOT_CHUNK = int(os.environ.get("OCFFM_ONEHOT_CHUNK", 8192))
-
-
-def scatter_onehot_xla(idx: Array, val: Array, Z: Array, d: int) -> Array:
-    """G = X^T Z as chunked dense one-hot matmuls on the MXU.
-
-    For SMALL feature dims (category-style fields) the random scatter-add
-    becomes a (chunk, d) x-dense times (chunk, k) matmul accumulated over
-    row chunks: MXU work at full throughput instead of a serialized
-    scatter-add.  FLOPs m*d*k stay cheap only while d is small — the
-    dispatcher caps d at OCFFM_ONEHOT_D.  Accumulation in f32 regardless of
-    storage dtype (strictly better than segment_sum's native-dtype adds).
-    """
-    m, p = idx.shape
-    k = Z.shape[1]
-    ch = min(_ONEHOT_CHUNK, m)
-    n_chunks = -(-m // ch)
-    total = n_chunks * ch
-    if total != m:
-        idx = jnp.pad(idx, ((0, total - m), (0, 0)))
-        val = jnp.pad(val, ((0, total - m), (0, 0)))
-        Z = jnp.pad(Z, ((0, total - m), (0, 0)))
-    iota = jnp.arange(d, dtype=idx.dtype)
-    acc_t = jnp.promote_types(Z.dtype, jnp.float32)  # f32 floor, keep f64
-
-    def body(c, G):
-        i_c = jax.lax.dynamic_slice_in_dim(idx, c * ch, ch)
-        v_c = jax.lax.dynamic_slice_in_dim(val, c * ch, ch)
-        z_c = jax.lax.dynamic_slice_in_dim(Z, c * ch, ch)
-        oh = jnp.zeros((ch, d), Z.dtype)
-        for s in range(p):
-            oh = oh + jnp.where(
-                i_c[:, s, None] == iota[None, :], v_c[:, s, None], 0
-            ).astype(Z.dtype)
-        return G + jnp.dot(oh.T, z_c, preferred_element_type=acc_t)
-
-    G = jax.lax.fori_loop(
-        0, n_chunks, body, jnp.zeros((d, k), acc_t)
-    )
-    return G.astype(Z.dtype)
-
-
-def _onehot_scatter_ok(d: int) -> bool:
-    mode = os.environ.get("OCFFM_ONEHOT", "auto").lower()
-    if mode in ("0", "off", "false"):
-        return False
-    if mode in ("1", "on", "true"):
-        return d <= _ONEHOT_D
-    # auto: MXU path on TPU only (CPU matmul loses to native scatter-add)
-    try:
-        on_tpu = jax.default_backend() not in ("cpu",)
-    except Exception:
-        on_tpu = False
-    return on_tpu and d <= _ONEHOT_D
+def segment_sum(data: Array, ids: Array, num: int,
+                sorted_ids: bool = False) -> Array:
+    """jax.ops.segment_sum accumulated at an f32 floor, returned in f32+:
+    a bf16 scatter-add rounds every partial sum to 8 bits, and on the GPU
+    it runs as a compare-and-swap loop far slower than f32 atomics
+    (PERF.md Findings)."""
+    acc = jnp.promote_types(data.dtype, jnp.float32)
+    return jax.ops.segment_sum(data.astype(acc), ids, num_segments=num,
+                               indices_are_sorted=sorted_ids)
 
 
 def scatter(idx: Array, val: Array, Z: Array, d: int) -> Array:
-    """Dispatching scatter: one-hot MXU matmul for small dims on TPU, XLA
-    segment_sum otherwise."""
-    if _onehot_scatter_ok(d):
-        return scatter_onehot_xla(idx, val, Z, d)
-    return scatter_xla(idx, val, Z, d)
+    """G = X^T Z via per-slot segment_sum (pads carry val == 0 so they
+    contribute zeros), accumulated at an f32 floor."""
+    p = idx.shape[1]
+    out = segment_sum(val[:, 0, None] * Z, idx[:, 0], d)
+    for s in range(1, p):
+        out = out + segment_sum(val[:, s, None] * Z, idx[:, s], d)
+    return out.astype(Z.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +58,9 @@ def scatter(idx: Array, val: Array, Z: Array, d: int) -> Array:
 #
 # The gradient/Hv positive passes gather (nnz, k) rows from P/Q and reduce
 # them (row-dot or segment-sum).  Materializing the whole gather at once
-# OOMs at scale: a (10M, 32) f32 gather is 1.28 GB unpadded and 5.1 GB after
-# TPU lane padding (k=32 -> 128).  These helpers process the COO stream in
-# fixed chunks so the transient is (chunk, k) regardless of nnz.
+# costs (nnz, k) device memory (1.28 GB for a (10M, 32) f32 gather).  These
+# helpers process the COO stream in fixed chunks so the transient is
+# (chunk, k) regardless of nnz.
 
 _NNZ_CHUNK = int(os.environ.get("OCFFM_NNZ_CHUNK", 1 << 21))
 
@@ -235,16 +92,14 @@ def pos_scatter(w: Array, B: Array, take_ids: Array, seg_ids: Array,
     segment ids == num_out are dropped by segment_sum).
 
     ``seg_sorted``: the COO stream is u-major sorted, so segment ids by u are
-    ascending (ghost/pad ids are the max id, preserving order) — the
-    ``indices_are_sorted`` hint measured ~15% faster on v5e.  Chunks of a
-    sorted stream stay sorted."""
+    ascending (ghost/pad ids are the max id, preserving order), which is
+    passed on as the ``indices_are_sorted`` hint.  Chunks of a sorted stream
+    stay sorted."""
     max_chunk = max_chunk or _NNZ_CHUNK
     nnz = w.shape[0]
     if nnz <= max_chunk:
-        return jax.ops.segment_sum(
-            w[:, None] * B[take_ids], seg_ids, num_segments=num_out,
-            indices_are_sorted=seg_sorted,
-        )
+        return segment_sum(w[:, None] * B[take_ids], seg_ids, num_out,
+                           seg_sorted).astype(B.dtype)
     n_chunks = -(-nnz // max_chunk)
     total = n_chunks * max_chunk
     wp = _pad_to(w, total, 0.0).reshape(n_chunks, max_chunk)
@@ -252,13 +107,12 @@ def pos_scatter(w: Array, B: Array, take_ids: Array, seg_ids: Array,
     sp = _pad_to(seg_ids, total, num_out).reshape(n_chunks, max_chunk)
 
     def body(i, acc):
-        return acc + jax.ops.segment_sum(
-            wp[i][:, None] * B[tp[i]], sp[i], num_segments=num_out,
-            indices_are_sorted=seg_sorted,
-        )
+        return acc + segment_sum(wp[i][:, None] * B[tp[i]], sp[i], num_out,
+                                 seg_sorted)
 
-    init = jnp.zeros((num_out, B.shape[1]), B.dtype)
-    return jax.lax.fori_loop(0, n_chunks, body, init)
+    init = jnp.zeros((num_out, B.shape[1]),
+                     jnp.promote_types(B.dtype, jnp.float32))
+    return jax.lax.fori_loop(0, n_chunks, body, init).astype(B.dtype)
 
 
 def pos_scatter_pair(w_a: Array, w_b: Array, B: Array, take_ids: Array,
@@ -270,11 +124,9 @@ def pos_scatter_pair(w_a: Array, w_b: Array, B: Array, take_ids: Array,
         Bq[s] += w_b[t] * B[take_ids[t]]**2      (the Jacobi diag's pos term)
 
     The random row gather is the expensive half of a positive pass; the two
-    payloads are concatenated to (chunk, 2k) and segment-summed in one op —
-    for k <= 64 that widens the scatter write into lanes the k-padded tile
-    already occupies, so the second scatter is nearly free.  This is what
-    makes the diagonal preconditioner's build cost ~vanish for cross blocks
-    (solver._solve_half).
+    payloads are concatenated to (chunk, 2k) and segment-summed in one op,
+    so the diagonal preconditioner's cross-block build pays no gather of its
+    own (solver._solve_half).
     """
     max_chunk = max_chunk or _NNZ_CHUNK
     nnz = w_a.shape[0]
@@ -285,12 +137,10 @@ def pos_scatter_pair(w_a: Array, w_b: Array, B: Array, take_ids: Array,
         payload = jnp.concatenate(
             [wa_c[:, None] * rows, wb_c[:, None] * rows * rows], axis=1
         )
-        return jax.ops.segment_sum(
-            payload, s_c, num_segments=num_out, indices_are_sorted=seg_sorted
-        )
+        return segment_sum(payload, s_c, num_out, seg_sorted)
 
     if nnz <= max_chunk:
-        out = one(w_a, w_b, take_ids, seg_ids)
+        out = one(w_a, w_b, take_ids, seg_ids).astype(B.dtype)
         return out[:, :k], out[:, k:]
     n_chunks = -(-nnz // max_chunk)
     total = n_chunks * max_chunk
@@ -302,8 +152,8 @@ def pos_scatter_pair(w_a: Array, w_b: Array, B: Array, take_ids: Array,
     def body(i, acc):
         return acc + one(wap[i], wbp[i], tp[i], sp[i])
 
-    init = jnp.zeros((num_out, 2 * k), B.dtype)
-    out = jax.lax.fori_loop(0, n_chunks, body, init)
+    init = jnp.zeros((num_out, 2 * k), jnp.promote_types(B.dtype, jnp.float32))
+    out = jax.lax.fori_loop(0, n_chunks, body, init).astype(B.dtype)
     return out[:, :k], out[:, k:]
 
 
@@ -322,19 +172,14 @@ def pos_gram(w: Array, B: Array, take_ids: Array, seg_ids: Array,
 
         sum_t w_t <phi_i, B_ot> B_ot  ==  phi_i @ M_i .
 
-    The (k, k) outer products are built directly in flattened (k*k,) lane
-    form via repeat/tile so no (chunk, k, k) intermediate is materialized
-    (trailing (k, k) dims tile-pad 4x for k=32).  For k a multiple of 16 ..
-    128, k*k is a multiple of 128, so M itself carries zero lane padding —
-    unlike every (rows, k) array in the solver.
+    The (k, k) outer products are built directly in flattened (k*k,) form
+    via repeat/tile so no (chunk, k, k) intermediate is materialized.
 
     Chunk size is scaled down by k (intermediates are k x wider than
     pos_scatter's).  w carries the pad mask; pad seg ids == num_out drop.
 
-    STATUS: measured negative for the solver on a v5e (docs/PERF.md,
-    scripts/gram_micro.py): the build costs ~7 pair-passes and both matvec
-    lowerings (batched-dot einsum, flat unrolled slices) are hostile to the
-    TPU stack.  Kept as a tested op for reproduction / future k >= 128 use.
+    Not used by the solver: the build costs several positive passes per
+    solve.  Kept as a tested op.
     """
     k = B.shape[1]
     max_chunk = max_chunk or max(1024, _NNZ_CHUNK // max(1, k))
@@ -343,10 +188,8 @@ def pos_gram(w: Array, B: Array, take_ids: Array, seg_ids: Array,
     def one(w_c, t_c, s_c, acc):
         bc = B[t_c]  # (C, k)
         outer = jnp.repeat(bc, k, axis=1) * jnp.tile(bc, (1, k))  # (C, k*k)
-        return acc + jax.ops.segment_sum(
-            w_c[:, None] * outer, s_c, num_segments=num_out,
-            indices_are_sorted=seg_sorted,
-        )
+        return acc + segment_sum(w_c[:, None] * outer, s_c, num_out,
+                                 seg_sorted).astype(B.dtype)
 
     init = jnp.zeros((num_out, k * k), B.dtype)
     if nnz <= max_chunk:
@@ -370,14 +213,10 @@ def pos_hv(phi: Array, own_ids: Array, B: Array, other_ids: Array,
         out[s] += w[t] * <phi[own[t]], B[other[t]]> * B[other[t]]  for own[t]==s
 
     One B-row gather per chunk serves both the row-dot and the scatter — the
-    unfused pos_dot + pos_scatter pair gathers B twice.
-
-    MEASURED NEGATIVE RESULT: 10x slower end-to-end than the unfused pair on
-    v5e (98k -> 10k examples/s at the bench config).  Binding the gather to
-    two consumers forces XLA to materialize it, losing the gather-into-
-    segment-reduction fusion it applies to each single-consumer call.  Kept
-    for documentation and future Pallas work; the solver uses the unfused
-    form.
+    unfused pos_dot + pos_scatter pair gathers B twice.  Binding the gather
+    to two consumers makes XLA materialize it, so the solver's plain COO
+    path keeps the unfused pair; this form is the plain reference of the
+    blocked per-CG-iteration pass (pos_hv_blocked).
     """
     max_chunk = max_chunk or _NNZ_CHUNK
     nnz = w.shape[0]
@@ -385,13 +224,12 @@ def pos_hv(phi: Array, own_ids: Array, B: Array, other_ids: Array,
     def one(own_c, oth_c, w_c, acc):
         bc = B[oth_c]
         pq = jnp.sum(phi[own_c] * bc, axis=1) * w_c
-        return acc + jax.ops.segment_sum(
-            pq[:, None] * bc, own_c, num_segments=num_out
-        )
+        return acc + segment_sum(pq[:, None] * bc, own_c, num_out)
 
+    acc_t = jnp.promote_types(B.dtype, jnp.float32)
     if nnz <= max_chunk:
         return one(own_ids, other_ids, w,
-                   jnp.zeros((num_out, B.shape[1]), B.dtype))
+                   jnp.zeros((num_out, B.shape[1]), acc_t)).astype(B.dtype)
     n_chunks = -(-nnz // max_chunk)
     total = n_chunks * max_chunk
     op = _pad_to(own_ids, total, num_out).reshape(n_chunks, max_chunk)
@@ -401,12 +239,12 @@ def pos_hv(phi: Array, own_ids: Array, B: Array, other_ids: Array,
     def body(i, acc):
         return one(op[i], tp[i], wp[i], acc)
 
-    init = jnp.zeros((num_out, B.shape[1]), B.dtype)
-    return jax.lax.fori_loop(0, n_chunks, body, init)
+    init = jnp.zeros((num_out, B.shape[1]), acc_t)
+    return jax.lax.fori_loop(0, n_chunks, body, init).astype(B.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Blocked-sorted positive ops: segment reductions as MXU block matmuls
+# Blocked-sorted positive ops: segment reductions as per-block matmuls
 # ---------------------------------------------------------------------------
 #
 # The u-major COO stream is sorted by its segment side, so a window of BM
@@ -417,12 +255,11 @@ def pos_hv(phi: Array, own_ids: Array, B: Array, other_ids: Array,
 #
 #     rows  = B[take_i]                 (MAXC, k)  one random gather
 #     ohm   = OneHot(own_local_i)       (MAXC, BM) built on the fly
-#     phig  = ohm @ phi_block           gather of phi BY MATMUL   (MXU)
-#     out_i = ohm^T @ (coeff * rows)    segment-sum BY MATMUL     (MXU)
+#     phig  = ohm @ phi_block           gather of phi BY MATMUL
+#     out_i = ohm^T @ (coeff * rows)    segment-sum BY MATMUL
 #
-# replacing XLA's scatter-add (the measured epoch bottleneck: ~15 ms per
-# 1M-entry pass at bench shapes vs ~1 ms of MXU time here; the remaining
-# cost is the shared B-row gather).  Pad entries carry own_local == BM,
+# replacing XLA's scatter-add with dense per-block matmuls; the remaining
+# random access is the shared B-row gather.  Pad entries carry own_local == BM,
 # whose one-hot row is all zeros — they vanish from both matmuls with no
 # explicit masking.  Accumulation is f32+ regardless of storage dtype
 # (strictly better than segment_sum's native-dtype adds).
@@ -503,7 +340,7 @@ def make_blocked_layout(seg_ids, take_ids, num_rows: int,
         return starts, np.diff(starts)
 
     starts, counts = block_counts(seg)
-    MAXC = max(8, -(-int(counts.max()) // 8) * 8)  # sublane-friendly
+    MAXC = max(8, -(-int(counts.max()) // 8) * 8)
     # cost guard: blocked passes stream n_blocks*MAXC slots; the plain ops
     # they replace stream the whole padded stream (nnz, pads included)
     head_sel = None  # (hd_rows, hd_cnt, hd_first) of the head tier
@@ -513,9 +350,8 @@ def make_blocked_layout(seg_ids, take_ids, num_rows: int,
         # two-tier split: over a T ladder, pick the per-row count threshold
         # whose tail layout + chunked head tier stream the FEWEST total
         # slots (n_blocks*MAXC_tail + head slots).  Minimizing head size
-        # alone is wrong: it leaves tail MAXC near the power rows' counts,
-        # which keeps the kt/fused kernels' per-block VMEM estimates
-        # rejected — the whole point of the split is a SMALL tail MAXC.
+        # alone is wrong: it leaves tail MAXC near the power rows' counts —
+        # the whole point of the split is a SMALL tail MAXC.
         rowcnt = np.bincount(seg, minlength=num_rows)
         maxcnt = int(rowcnt.max())
         # the head is for POWER rows only: cap it at 1/8 of the nonzero
@@ -648,19 +484,12 @@ def make_blocked_layout(seg_ids, take_ids, num_rows: int,
     return out
 
 
-def _cpu_backend() -> bool:
-    try:
-        return jax.default_backend() == "cpu"
-    except Exception:
-        return True
-
-
 def _up(a, acc_t):
     """CPU-only upcast for bf16 dot operands: the CPU dot thunk cannot
     execute BF16 x BF16 = F32, and casting bf16 inputs to f32 before an
-    f32-accumulating dot is BIT-IDENTICAL to the TPU MXU's native bf16
-    semantics (bf16 products are exact in f32).  No-op on TPU."""
-    if _cpu_backend() and a.dtype == jnp.bfloat16:
+    f32-accumulating dot gives the same result (bf16 products are exact in
+    f32).  No-op on the GPU, whose bf16 dots take the operands as they are."""
+    if a.dtype == jnp.bfloat16 and platform.backend() == "cpu":
         return a.astype(acc_t)
     return a
 
@@ -672,10 +501,8 @@ def _blocked_dot(a: Array, b: Array, out_dtype):
 
 
 # One big up-front row gather per GROUP of blocks instead of one small
-# gather per block: per-block gathers in a fori_loop are latency-bound (no
-# win vs the plain pair: 17.8 ms vs 17.2 ms at bench shapes), while the
-# group-prefetched form measures 8.0 ms f32 / 10 ms bf16.  The prefetch
-# transient is (G, MAXC, k) — bounded by OCFFM_BLK_PREFETCH bytes.
+# gather per block: per-block gathers in a fori_loop are latency-bound.  The
+# prefetch transient is (G, MAXC, k) — bounded by OCFFM_BLK_PREFETCH bytes.
 _BLK_PREFETCH = int(os.environ.get("OCFFM_BLK_PREFETCH", 1 << 29))
 
 
@@ -683,19 +510,15 @@ def gather_blocked_rows(B: Array, take: Array) -> Array:
     """Materialize the blocked stream's B rows ONCE: (n_blocks, MAXC, k).
 
     B is loop-invariant across a block solve (only phi changes per CG
-    iteration), so the random row gather — the measured per-pass bottleneck,
-    ~8 ms/M rows even from small tables (row-count-bound: HBM reads are
-    tile-granular) — can be paid once per solve; the gradient pass and every
-    CG iteration then stream the result SEQUENTIALLY at full bandwidth.
-    MAXC is a multiple of 8 and k lane-pads as usual, so the 3-D layout adds
-    no padding beyond what any (rows, k) array already pays."""
+    iteration), so the random row gather can be paid once per solve; the
+    gradient pass and every CG iteration then stream the result
+    sequentially."""
     n_blocks, MAXC = take.shape
     return B[take.reshape(-1)].reshape(n_blocks, MAXC, B.shape[1])
 
 
 def _blk_group(n_blocks: int, maxc: int, k: int, itemsize: int) -> int:
-    lanes = -(-k // 128) * 128
-    per_block = max(1, maxc * lanes * itemsize)
+    per_block = max(1, maxc * k * itemsize)
     return max(1, min(n_blocks, _BLK_PREFETCH // per_block))
 
 
@@ -789,7 +612,7 @@ def pos_gap_blocked(dT: Array, rows: Array, own: Array, inv: Array | None,
     once per table solve.  With the solve's pre-gathered stream available
     (``rows`` = gather_blocked_rows output: B is unchanged by the step being
     applied, W/H and the own-side cache are what moved), both gathers
-    disappear: the own side becomes the one-hot MXU gather-by-matmul and the
+    disappear: the own side becomes the one-hot gather-by-matmul and the
     B side streams sequentially.  Only an (nnz,) SCALAR gather (``inv``, the
     layout's static original->slot map) permutes the result back to stream
     order; entries outside the layout land on slot 0 and are killed by the
@@ -894,38 +717,35 @@ def expand_rows_blocked(vec: Array, own: Array, block_rows: int) -> Array:
 # ---------------------------------------------------------------------------
 #
 # Every positive pass is LINEAR over stream entries, so the two-tier split is
-# exact: the tail tier runs the ordinary blocked/kt/fused kernels (with head
-# entries dropped) and these ops add the head entries' contributions.  A head
-# chunk owns head_chunk consecutive entries of exactly ONE power row, so the
+# exact: the tail tier runs the ordinary blocked ops (with head entries
+# dropped) and these ops add the head entries' contributions.  A head chunk
+# owns head_chunk consecutive entries of exactly ONE power row, so the
 # per-row segment structure degenerates to dense per-chunk reductions
-# (batched matvecs XLA streams at HBM bandwidth) followed by a scatter-add
-# over the FEW chunks — the O(num_rows) scatter that motivated the blocked
-# layout never reappears.  The per-row dense terms (omega Grams, the Jacobi
-# omega diag) are NOT duplicated here: the tail layout still spans the full
-# row space, so its passes carry them for head rows too.
-# Reference analog: the load-balanced hot loops (schedule(guided),
-# ffm.cpp:572) — the TPU answer to a power row is a dense chunked stream,
-# not dynamic scheduling.
+# (batched matvecs) followed by a scatter-add over the FEW chunks — the
+# O(num_rows) scatter that motivated the blocked layout never reappears.
+# The per-row dense terms (omega Grams, the Jacobi omega diag) are NOT
+# duplicated here: the tail layout still spans the full row space, so its
+# passes carry them for head rows too.  Reference analog: the load-balanced
+# hot loops (schedule(guided), ffm.cpp:572) — here a power row becomes a
+# dense chunked stream.  The head stream is row-major, (NCH, CHUNK, k), as
+# gather_blocked_rows returns it.
 
 
 def head_chunk_sums(c_hd: Array, rows_hd: Array) -> Array:
     """Per-chunk weighted row sums: out[c] = sum_t c_hd[c,t] * rows_hd[c,t]
-    — (NCH, CHUNK) x k-major (NCH, k, CHUNK) -> (NCH, k), f32+
-    accumulation.  The head stream is stored k-major
-    (gather_blocked_rows_t) so CHUNK rides the 128-lane axis: no lane
-    padding at k < 128, same as the kt kernels' stream."""
+    — (NCH, CHUNK) x (NCH, CHUNK, k) -> (NCH, k), f32+ accumulation."""
     acc_t = jnp.promote_types(rows_hd.dtype, jnp.float32)
-    z = jnp.einsum("nc,nkc->nk", _up(c_hd, acc_t), _up(rows_hd, acc_t),
+    z = jnp.einsum("nc,nck->nk", _up(c_hd, acc_t), _up(rows_hd, acc_t),
                    preferred_element_type=acc_t)
     return z.astype(rows_hd.dtype)
 
 
 def head_pq(phig: Array, rows_hd: Array) -> Array:
-    """Per-entry inner products <phig[c], rows_hd[c,:,t]> -> (NCH, CHUNK):
+    """Per-entry inner products <phig[c], rows_hd[c,t]> -> (NCH, CHUNK):
     the head form of the positive pass's phi-row dot (pad entries are
     masked by the caller's weight multiply)."""
     acc_t = jnp.promote_types(rows_hd.dtype, jnp.float32)
-    pq = jnp.einsum("nk,nkc->nc", _up(phig, acc_t), _up(rows_hd, acc_t),
+    pq = jnp.einsum("nk,nck->nc", _up(phig, acc_t), _up(rows_hd, acc_t),
                     preferred_element_type=acc_t)
     return pq.astype(rows_hd.dtype)
 
@@ -936,7 +756,7 @@ def head_seg_sum(c_hd: Array, hd_row: Array, num_rows: int) -> Array:
     pad chunks scatter zeros)."""
     acc_t = jnp.promote_types(c_hd.dtype, jnp.float32)
     s = jnp.sum(c_hd.astype(acc_t), axis=1)
-    return jnp.zeros(num_rows, acc_t).at[hd_row].add(s).astype(c_hd.dtype)
+    return segment_sum(s, hd_row, num_rows).astype(c_hd.dtype)
 
 
 def head_scatter(c_hd: Array, rows_hd: Array, hd_row: Array, num_out: int,
@@ -944,14 +764,13 @@ def head_scatter(c_hd: Array, rows_hd: Array, hd_row: Array, num_out: int,
     """Head form of pos_scatter_blocked: out[r] += sum over r's head
     entries of c * B_row (plus the Jacobi diag's squared-row payload when
     ``diag_w_hd`` is given)."""
-    k = rows_hd.shape[1]
     dt = rows_hd.dtype
     z = head_chunk_sums(c_hd, rows_hd)
-    out = jnp.zeros((num_out, k), dt).at[hd_row].add(z)
+    out = segment_sum(z, hd_row, num_out).astype(dt)
     if diag_w_hd is None:
         return out
     q = head_chunk_sums(diag_w_hd, rows_hd * rows_hd)
-    return out, jnp.zeros((num_out, k), dt).at[hd_row].add(q)
+    return out, segment_sum(q, hd_row, num_out).astype(dt)
 
 
 def head_hv(phi: Array, rows_hd: Array, w_hd: Array, hd_row: Array,
@@ -963,29 +782,7 @@ def head_hv(phi: Array, rows_hd: Array, w_hd: Array, hd_row: Array,
     phig = phi[hd_row]
     c = head_pq(phig, rows_hd) * (w_hd * jnp.asarray(w_scale, dt))
     z = head_chunk_sums(c, rows_hd)
-    return jnp.zeros((num_out, rows_hd.shape[1]), dt).at[hd_row].add(z)
-
-
-def head_project(V: Array, xh_idx: Array, xh_val: Array) -> Array:
-    """phi restricted to the head rows: (NH, p) field data x (D, k) table
-    -> (NH, k).  The head-row count is tiny, so the random table gather is
-    negligible — this is what lets the FUSED table kernels (which never
-    materialize phi) take head adjustments in table space."""
-    acc_t = jnp.promote_types(V.dtype, jnp.float32)
-    z = jnp.einsum("np,npk->nk", _up(xh_val, acc_t), _up(V[xh_idx], acc_t),
-                   preferred_element_type=acc_t)
-    return z.astype(V.dtype)
-
-
-def head_tbl_scatter(z: Array, xh_idx: Array, xh_val: Array,
-                     d: int) -> Array:
-    """X_head^T @ z: scatter the head rows' (NH, k) payload into table
-    space (d, k) through the head rows' field entries — NH*p adds."""
-    acc_t = jnp.promote_types(z.dtype, jnp.float32)
-    contrib = (xh_val.astype(acc_t)[..., None]
-               * z.astype(acc_t)[:, None, :])  # (NH, p, k)
-    out = jnp.zeros((d, z.shape[1]), acc_t).at[xh_idx].add(contrib)
-    return out.astype(z.dtype)
+    return segment_sum(z, hd_row, num_out).astype(dt)
 
 
 def pos_hv_blocked(phi: Array, B: Array, w: Array, take: Array, src: Array,
@@ -1052,970 +849,3 @@ def pos_hv_blocked(phi: Array, B: Array, w: Array, take: Array, src: Array,
 
     return jax.lax.fori_loop(0, n_groups, outer,
                              jnp.zeros((num_out, k), dt))
-
-
-# ---------------------------------------------------------------------------
-# Fused table-space kernels: the X projection / X^T scatter pair folded into
-# the per-CG-iteration pass
-# ---------------------------------------------------------------------------
-#
-# A non-identity-field solve pays, on EVERY CG iteration, the table pair
-# around the positive pass (ref UTx ffm.cpp:314-331 and the X^T z scatter in
-# hs_side/hs_cross ffm.cpp:594-628,706-742):
-#
-#     phi = X1 @ V          random gather from the (D, k) table
-#     Hv  = X1^T @ zp       chunked one-hot scatter over all rows
-#
-# plus two full (rows, k) HBM round trips for phi and zp.  For SMALL D
-# (category-style fields, D <= OCFFM_FUSED_TBL_D) both collapse into the
-# blocked positive pass itself: each grid step builds the row block's one-hot
-# X on the fly, projects by MXU matmul (xoh @ V, V VMEM-resident), runs the
-# positive math, and accumulates the TABLE-SPACE result xoh^T @ zp into a
-# VMEM-resident (D, k) output (constant out index_map -> the block never
-# leaves VMEM until the grid ends).  phi and zp never exist in HBM, no
-# random access remains anywhere in the pass.
-
-
-def _dotp(a, b, acc_t, contract0: bool = False):
-    """Fused-kernel dot with an f32-exact precision floor.  TPU MXU f32
-    matmuls default to a reduced-precision decomposition (~1e-3 relative —
-    measured: the fused projection diverged from the gather-FMA form by
-    4e-3 on hardware while bit-exact in interpret mode); HIGHEST restores
-    f32 exactness for f32 inputs and changes nothing for bf16 inputs."""
-    prec = (jax.lax.Precision.HIGHEST
-            if a.dtype in (jnp.float32, jnp.float64) else None)
-    dims = ((((0,), (0,)), ((), ())) if contract0
-            else (((1,), (0,)), ((), ())))
-    return jax.lax.dot_general(_up(a, acc_t), _up(b, acc_t), dims,
-                               precision=prec,
-                               preferred_element_type=acc_t)
-
-
-def _xoh_block(idx_t_ref, val_t_ref, d: int, dt, square: bool = False):
-    """TRANSPOSED one-hot X row block (d, BM) built in-kernel: sum over the
-    p feature slots of val_s * OneHot(idx_s)^T (val_s^2 with ``square`` —
-    the Hessian diagonal's X^2).  Indices/values arrive TRANSPOSED, (p, BM):
-    a (1, BM) slot row broadcasts along SUBLANES against the (d, BM) iota,
-    which Mosaic lowers directly — the (BM, 1)-along-LANES broadcast of the
-    untransposed form is an invalid relayout on TPU.  Pad slots carry
-    val == 0 and contribute zero rows; idx never reaches table pad rows, so
-    those output rows accumulate exactly zero."""
-    p, BM = idx_t_ref.shape
-    iota_d = jax.lax.broadcasted_iota(jnp.int32, (d, BM), 0)
-    xoh = jnp.zeros((d, BM), dt)
-    for s in range(p):
-        v = val_t_ref[s:s + 1, :]
-        if square:
-            v = v * v
-        # compare -> cast -> multiply: jnp.where with a (1, BM) operand asks
-        # Mosaic for a replicated i1 relayout it cannot produce
-        xoh = xoh + (idx_t_ref[s:s + 1, :] == iota_d).astype(dt) * v
-    return xoh
-
-
-def _hv_self_tbl_kernel(x_idx_ref, x_val_ref, q1_ref, dd_ref, v_ref, out_ref):
-    """One row block of the fused SELF-block Hv (hs_side, ffm.cpp:594-628)
-    in table space:  out += X_b^T (dd_b * <Q1_b, X_b V> Q1_b)."""
-    from jax.experimental import pallas as pl
-
-    dt = q1_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    d = v_ref.shape[0]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)             # (d, BM)
-    phib = _dotp(xoh_t, v_ref[...], acc_t, contract0=True).astype(dt)
-    q1 = q1_ref[...]
-    s = dd_ref[...] * jnp.sum(q1 * phib, axis=1, keepdims=True)  # (BM, 1)
-    zpb = (s * q1).astype(dt)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += _dotp(xoh_t, zpb, out_ref.dtype)
-
-
-def _pad_rows16(T: Array) -> Array:
-    d = T.shape[0]
-    dk = -(-d // 16) * 16  # sublane-friendly for every dtype
-    return T if dk == d else jnp.pad(T, ((0, dk - d), (0, 0)))
-
-
-def hv_self_tbl_pallas(V: Array, x_idx_t: Array, x_val_t: Array, Q1: Array,
-                       dd: Array, block_rows: int,
-                       interpret: bool = False) -> Array:
-    """Fused self-block Hv positive term in table space (see the section
-    comment): returns X^T diag(dd <Q1, X V>) Q1 as one streamed pass —
-    Q1/dd/x blocks read sequentially, V and the (D, k) accumulator
-    VMEM-resident, zero random access.  ``dd`` is (rows, 1);
-    ``x_idx_t``/``x_val_t`` are the TRANSPOSED (p, rows) feature arrays
-    (see _xoh_block for why)."""
-    from jax.experimental import pallas as pl
-
-    d, k = V.shape
-    Vp = _pad_rows16(V)
-    dk = Vp.shape[0]
-    p, m = x_idx_t.shape
-    out = pl.pallas_call(
-        _hv_self_tbl_kernel,
-        grid=(m // block_rows,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((block_rows, 1), lambda i: (i, 0)),
-            pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (dk, k), jnp.promote_types(V.dtype, jnp.float32)),
-        interpret=interpret,
-    )(x_idx_t, x_val_t, Q1, dd, Vp)
-    return out[:d]
-
-
-def _hv_tbl_kernel(w_scale: float, x_idx_ref, x_val_ref, rows_ref, own_ref,
-                   w_ref, dense_ref, v_ref, out_ref):
-    """One row block of the fused CROSS-block Hv (hs_cross,
-    ffm.cpp:706-742) in table space: the _hv_blk_kernel positive + omega
-    math with the X projection fused in front (phib = X_b V by one-hot
-    matmul) and the X^T scatter fused behind (out += X_b^T zp_b, VMEM
-    accumulation)."""
-    from jax.experimental import pallas as pl
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    rows = rows_ref[0]                                    # (MAXC, k)
-    MAXC = rows.shape[0]
-    d = v_ref.shape[0]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)       # (d, BM)
-    BM = xoh_t.shape[1]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (BM, MAXC), 0)
-    ohm_t = (own_ref[0] == iota).astype(dt)               # (BM, MAXC)
-    phib = _dotp(xoh_t, v_ref[...], acc_t, contract0=True).astype(dt)
-    phig = _dotp(ohm_t, phib, acc_t, contract0=True).astype(dt)  # (MAXC, k)
-    pq = jnp.sum(phig * rows, axis=1, keepdims=True)      # (MAXC, 1)
-    lhs = ohm_t * (w_ref[0] * jnp.asarray(w_scale, dt))
-    zpb = _dotp(lhs, pq * rows, acc_t)
-    zpb = zpb + _dotp(phib, dense_ref[...], acc_t)
-    zpb = zpb.astype(dt)  # one cast, as the unfused path's zp block
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += _dotp(xoh_t, zpb, out_ref.dtype)
-
-
-def pos_hv_tbl_pallas(V: Array, x_idx_t: Array, x_val_t: Array, rows: Array,
-                      own: Array, w_blk: Array, dense_mat: Array,
-                      block_rows: int, w_scale: float = 1.0,
-                      interpret: bool = False) -> Array:
-    """Fused cross-block CG positive pass in TABLE space:
-
-        out = X^T [ OneHot(own)^T (w <X V-gather, rows> rows)
-                    + (X V) @ dense_mat ]                       (D, k)
-
-    Everything pos_hv_blocked_pallas needs plus the X one-hot per row block;
-    the (rows, k) phi/zp intermediates never touch HBM and the X table pair
-    (the non-identity-field per-iteration cost, docs/PERF.md no_tbl_scatter)
-    disappears into the same streamed pass.  Requires the pre-gathered
-    stream (``rows``) and pre-permuted weights (``w_blk``) like the plain
-    Mosaic hv kernel; ``x_idx_t``/``x_val_t`` are TRANSPOSED (p, rows);
-    output accumulates in f32."""
-    from jax.experimental import pallas as pl
-
-    d, k = V.shape
-    Vp = _pad_rows16(V)
-    dk = Vp.shape[0]
-    n_blocks, MAXC = own.shape
-    p = x_idx_t.shape[0]
-    kern = functools.partial(_hv_tbl_kernel, w_scale)
-    out = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, MAXC, k), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((k, k), lambda i: (0, 0)),
-            pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (dk, k), jnp.promote_types(V.dtype, jnp.float32)),
-        interpret=interpret,
-    )(x_idx_t, x_val_t, rows, own.reshape(n_blocks, 1, MAXC),
-      w_blk.reshape(n_blocks, 1, MAXC), dense_mat, Vp)
-    return out[:d]
-
-
-def _grad_self_tbl_kernel(with_diag: bool, x_idx_ref, x_val_ref, q1_ref,
-                          zdense_ref, dd_ref, own_ref, c_ref, outg_ref,
-                          *outq_ref):
-    """One row block of the fused SELF-block gradient (gd_side,
-    ffm.cpp:537-592) in table space:
-
-        z_b  = zdense_b + per-row sums of the slot coefficients
-        outg += X_b^T (z_b * Q1_b)
-        outq += (X_b^2)^T (dd_b * Q1_b^2)      (the Jacobi diag, optional)
-    """
-    from jax.experimental import pallas as pl
-
-    dt = q1_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    BM = q1_ref.shape[0]
-    MAXC = own_ref.shape[-1]
-    d = outg_ref.shape[0]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (BM, MAXC), 0)
-    ohm_t = (own_ref[0] == iota).astype(dt)               # (BM, MAXC)
-    zpos = jnp.sum((ohm_t * c_ref[0]).astype(acc_t), axis=1,
-                   keepdims=True)                          # (BM, 1)
-    q1 = q1_ref[...]
-    zb = (zdense_ref[...] + zpos).astype(dt)
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)       # (d, BM)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        outg_ref[...] = jnp.zeros_like(outg_ref)
-
-    outg_ref[...] += _dotp(xoh_t, zb * q1, outg_ref.dtype)
-    if with_diag:
-        (oq,) = outq_ref
-        xoh2_t = _xoh_block(x_idx_ref, x_val_ref, d, dt, square=True)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            oq[...] = jnp.zeros_like(oq)
-
-        oq[...] += _dotp(xoh2_t, (dd_ref[...] * q1 * q1).astype(dt),
-                         oq.dtype)
-
-
-def grad_self_tbl_pallas(d: int, x_idx_t: Array, x_val_t: Array, Q1: Array,
-                         zdense: Array, own: Array, c_blk: Array,
-                         block_rows: int, dd: Array | None = None,
-                         interpret: bool = False):
-    """Fused self-block gradient positive+dense pass in table space:
-    X^T diag(zdense + seg-sum(c)) Q1, plus (with ``dd``) the Jacobi diag
-    (X^2)^T diag(dd) Q1^2 from the same streamed pass.  ``zdense``/``dd``
-    are (rows, 1); ``c_blk`` is the slot-order coefficients
-    (n_blocks, MAXC), pad slots killed by the all-zero one-hot column;
-    ``x_idx_t``/``x_val_t`` are TRANSPOSED (p, rows).
-    Returns (d, k) [, (d, k)] in the f32-floor accumulator dtype."""
-    from jax.experimental import pallas as pl
-
-    p, m = x_idx_t.shape
-    k = Q1.shape[1]
-    n_blocks, MAXC = own.shape
-    with_diag = dd is not None
-    dk = -(-d // 16) * 16
-    acc_t = jnp.promote_types(Q1.dtype, jnp.float32)
-    kern = functools.partial(_grad_self_tbl_kernel, with_diag)
-    out_shape = [jax.ShapeDtypeStruct((dk, k), acc_t)]
-    out_specs = [pl.BlockSpec((dk, k), lambda i: (0, 0))]
-    if with_diag:
-        out_shape.append(jax.ShapeDtypeStruct((dk, k), acc_t))
-        out_specs.append(pl.BlockSpec((dk, k), lambda i: (0, 0)))
-    res = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((block_rows, 1), lambda i: (i, 0)),
-            pl.BlockSpec((block_rows, 1), lambda i: (i, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(x_idx_t, x_val_t, Q1, zdense,
-      dd if with_diag else jnp.zeros_like(zdense),
-      own.reshape(n_blocks, 1, MAXC), c_blk.reshape(n_blocks, 1, MAXC))
-    if with_diag:
-        return res[0][:d], res[1][:d]
-    return res[0][:d]
-
-
-def grad_cross_tbl_pallas(d: int, x_idx_t: Array, x_val_t: Array,
-                          rows: Array, own: Array, c_blk: Array,
-                          dense: Array, block_rows: int,
-                          w_blk: Array | None = None, wq_scale: float = 1.0,
-                          interpret: bool = False):
-    """Fused cross-block gradient positive+dense pass in table space:
-    X^T (dense + blocked-scatter(c, rows)), plus (with ``w_blk``) the Jacobi
-    diag positive term (X^2)^T blocked-scatter(wq_scale * w, rows^2) from
-    the same pass.  Consumes the solve's pre-gathered stream; the (rows, k)
-    Z intermediate never exists in HBM.  ``x_idx_t``/``x_val_t`` are
-    TRANSPOSED (p, rows).  Returns (d, k) [, (d, k)]."""
-    from jax.experimental import pallas as pl
-
-    p, m = x_idx_t.shape
-    n_blocks, MAXC, k = rows.shape
-    with_diag = w_blk is not None
-    dk = -(-d // 16) * 16
-    acc_t = jnp.promote_types(rows.dtype, jnp.float32)
-    kern = functools.partial(_grad_cross_tbl_kernel, with_diag, wq_scale)
-    out_shape = [jax.ShapeDtypeStruct((dk, k), acc_t)]
-    out_specs = [pl.BlockSpec((dk, k), lambda i: (0, 0))]
-    if with_diag:
-        out_shape.append(jax.ShapeDtypeStruct((dk, k), acc_t))
-        out_specs.append(pl.BlockSpec((dk, k), lambda i: (0, 0)))
-    res = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, MAXC, k), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(x_idx_t, x_val_t, rows, own.reshape(n_blocks, 1, MAXC),
-      c_blk.reshape(n_blocks, 1, MAXC),
-      (w_blk if with_diag else c_blk).reshape(n_blocks, 1, MAXC), dense)
-    if with_diag:
-        return res[0][:d], res[1][:d]
-    return res[0][:d]
-
-
-def _grad_cross_tbl_kernel(with_diag: bool, wq_scale: float, x_idx_ref,
-                           x_val_ref, rows_ref, own_ref, c_ref, w_ref,
-                           dense_ref, outg_ref, *outq_ref):
-    """One row block of the fused CROSS-block gradient (gd_cross,
-    ffm.cpp:630-703) in table space:
-
-        zpos_b = OneHot(own)^T (c * rows)
-        outg  += X_b^T (dense_b + zpos_b)
-        outq  += (X_b^2)^T OneHot(own)^T (wq * rows^2)   (optional diag)
-    """
-    from jax.experimental import pallas as pl
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    BM = dense_ref.shape[0]
-    rows = rows_ref[0]
-    MAXC = rows.shape[0]
-    d = outg_ref.shape[0]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (BM, MAXC), 0)
-    ohm_t = (own_ref[0] == iota).astype(dt)
-    zpos = _dotp(ohm_t * c_ref[0], rows, acc_t).astype(dt)  # (BM, k)
-    zb = dense_ref[...] + zpos
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)       # (d, BM)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        outg_ref[...] = jnp.zeros_like(outg_ref)
-
-    outg_ref[...] += _dotp(xoh_t, zb, outg_ref.dtype)
-    if with_diag:
-        (oq,) = outq_ref
-        posq = _dotp(ohm_t * (w_ref[0] * jnp.asarray(wq_scale, dt)),
-                     rows * rows, acc_t).astype(dt)
-        xoh2_t = _xoh_block(x_idx_ref, x_val_ref, d, dt, square=True)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            oq[...] = jnp.zeros_like(oq)
-
-        oq[...] += _dotp(xoh2_t, posq, oq.dtype)
-
-
-# ---------------------------------------------------------------------------
-# k-major ("kt") blocked kernels: the stream stored as (k, MAXC)
-# ---------------------------------------------------------------------------
-#
-# Every (rows, k) buffer with k < 128 physically occupies 128 lanes on TPU —
-# the pre-gathered stream pays 4x the bytes at k=32, and every one-hot MXU
-# contraction producing a (.., k) output pays 4x the FLOPs (output tiles are
-# 128 lanes wide regardless).  The k-major layout stores the solve's stream
-# TRANSPOSED, (n_blocks, k, MAXC): k rides the sublane dim (zero padding at
-# k = 8..128) and MAXC rides the lanes (full).  Every contraction is then
-# oriented so the k-sized dim is an OUTPUT SUBLANE dim or a contracting dim:
-#
-#     phib_t (k, BM)   = V^T-projection via dot_general(V, xoh_t, c0)
-#     phig_t (k, MAXC) = phib_t @ ohm_t                      (plain dot)
-#     pq     (1, MAXC) = colsum(phig_t * rows_t)             (VPU)
-#     zp_t   (k, BM)   = dot_general(Y, ohm_t, c1)           (A @ B^T form)
-#     out_t  (k, dk)  += dot_general(zp_t, xoh_t, c1)
-#
-# — no 128-lane-padded outputs anywhere, 4x less MXU work and 4x less HBM
-# streaming at k=32 than the row-major forms above.  c0/c1 = contract dim0 /
-# dim1 of both operands (A^T B and A B^T — both native MXU orientations).
-# Post-fused op ablation at 1M x 500k put the row-major per-CG-iteration
-# passes at 55% of the epoch, all of it 4x-padded — this is that fix.
-
-
-def gather_blocked_rows_t(B: Array, take: Array) -> Array:
-    """k-major pre-gathered stream: (n_blocks, k, MAXC).  Pays one XLA
-    transpose over the gather output per solve; every per-iteration pass
-    then streams 4x fewer bytes (k=32) than the row-major layout."""
-    n_blocks, MAXC = take.shape
-    rows = B[take.reshape(-1)].reshape(n_blocks, MAXC, B.shape[1])
-    return jnp.transpose(rows, (0, 2, 1))
-
-
-def _ohm_t(own_ref, BM: int, MAXC: int, dt):
-    iota = jax.lax.broadcasted_iota(jnp.int32, (BM, MAXC), 0)
-    return (own_ref[0] == iota).astype(dt)  # (BM, MAXC)
-
-
-def _dot_c1(a, b, acc_t):
-    """A @ B^T (contract the minor dim of both operands) at the fused
-    kernels' precision floor."""
-    prec = (jax.lax.Precision.HIGHEST
-            if a.dtype in (jnp.float32, jnp.float64) else None)
-    return jax.lax.dot_general(_up(a, acc_t), _up(b, acc_t),
-                               (((1,), (1,)), ((), ())),
-                               precision=prec, preferred_element_type=acc_t)
-
-
-def _hv_kt_kernel(w_scale: float, rows_ref, own_ref, w_ref, phi_ref,
-                  dense_ref, out_ref):
-    """k-major plain blocked hv (identity / large-D sides): same math as
-    _hv_blk_kernel, stream and contractions in (k, MAXC) orientation; only
-    the (BM, k) phi/out blocks cross orientation (two small in-kernel
-    transposes)."""
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    rows_t = rows_ref[0]                                   # (k, MAXC)
-    k, MAXC = rows_t.shape
-    phib = phi_ref[...]                                    # (BM, k)
-    BM = phib.shape[0]
-    ohm = _ohm_t(own_ref, BM, MAXC, dt)
-    phib_t = phib.T                                        # (k, BM)
-    phig_t = _dotp(phib_t, ohm, acc_t).astype(dt)          # (k, MAXC)
-    pq = jnp.sum((phig_t * rows_t).astype(acc_t), axis=0,
-                 keepdims=True).astype(dt)                 # (1, MAXC)
-    Y = rows_t * (pq * (w_ref[0] * jnp.asarray(w_scale, dt)))
-    zp_t = _dot_c1(Y, ohm, acc_t)                          # (k, BM)
-    zp_t = zp_t + _dotp(dense_ref[...], phib_t, acc_t, contract0=True)
-    out_ref[...] = zp_t.astype(dt).T
-
-
-def pos_hv_kt_pallas(phi: Array, rows_t: Array, own: Array, w_blk: Array,
-                     dense_mat: Array, num_out: int, block_rows: int,
-                     w_scale: float = 1.0, interpret: bool = False) -> Array:
-    """k-major pos_hv_blocked_pallas: identical math/result, (k, MAXC)
-    stream (gather_blocked_rows_t)."""
-    from jax.experimental import pallas as pl
-
-    n_blocks, k, MAXC = rows_t.shape
-    dt = rows_t.dtype
-    kern = functools.partial(_hv_kt_kernel, w_scale)
-    return pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, k, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((k, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((num_out, k), dt),
-        interpret=interpret,
-    )(rows_t, own.reshape(n_blocks, 1, MAXC),
-      w_blk.reshape(n_blocks, 1, MAXC), phi, dense_mat)
-
-
-def _hv_tbl_kt_kernel(w_scale: float, x_idx_ref, x_val_ref, rows_ref,
-                      own_ref, w_ref, dense_ref, v_ref, out_ref):
-    """k-major fused cross hv: zero in-kernel transposes — the output
-    accumulates TRANSPOSED, (k, dk), and the caller untransposes the tiny
-    table-space result once."""
-    from jax.experimental import pallas as pl
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    rows_t = rows_ref[0]                                   # (k, MAXC)
-    k, MAXC = rows_t.shape
-    d = v_ref.shape[0]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)        # (d, BM)
-    BM = xoh_t.shape[1]
-    ohm = _ohm_t(own_ref, BM, MAXC, dt)
-    phib_t = _dotp(v_ref[...], xoh_t, acc_t,
-                   contract0=True).astype(dt)              # (k, BM)
-    phig_t = _dotp(phib_t, ohm, acc_t).astype(dt)          # (k, MAXC)
-    pq = jnp.sum((phig_t * rows_t).astype(acc_t), axis=0,
-                 keepdims=True).astype(dt)
-    Y = rows_t * (pq * (w_ref[0] * jnp.asarray(w_scale, dt)))
-    zp_t = _dot_c1(Y, ohm, acc_t)                          # (k, BM)
-    zp_t = zp_t + _dotp(dense_ref[...], phib_t, acc_t, contract0=True)
-    zp_t = zp_t.astype(dt)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += _dot_c1(zp_t, xoh_t, out_ref.dtype)    # (k, d)
-
-
-def pos_hv_tbl_kt_pallas(V: Array, x_idx_t: Array, x_val_t: Array,
-                         rows_t: Array, own: Array, w_blk: Array,
-                         dense_mat: Array, block_rows: int,
-                         w_scale: float = 1.0,
-                         interpret: bool = False) -> Array:
-    """k-major pos_hv_tbl_pallas: identical math, (k, MAXC) stream, returns
-    the (d, k) result (accumulated internally as (k, d), one tiny
-    untranspose outside the kernel)."""
-    from jax.experimental import pallas as pl
-
-    d, k = V.shape
-    Vp = _pad_rows16(V)
-    dk = Vp.shape[0]
-    n_blocks, _, MAXC = rows_t.shape
-    p = x_idx_t.shape[0]
-    kern = functools.partial(_hv_tbl_kt_kernel, w_scale)
-    out = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, k, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((k, k), lambda i: (0, 0)),
-            pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((k, dk), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (k, dk), jnp.promote_types(V.dtype, jnp.float32)),
-        interpret=interpret,
-    )(x_idx_t, x_val_t, rows_t, own.reshape(n_blocks, 1, MAXC),
-      w_blk.reshape(n_blocks, 1, MAXC), dense_mat, Vp)
-    return out[:, :d].T
-
-
-def _scatter_kt_kernel(with_diag: bool, wq_scale: float, rows_ref, own_ref,
-                       c_ref, w_ref, out_ref, *outq_ref):
-    """k-major blocked gradient scatter (identity / large-D sides):
-    zpos[r] = sum_t c_t rows_t (+ the diag payload wq * rows^2)."""
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    rows_t = rows_ref[0]
-    k, MAXC = rows_t.shape
-    BM = out_ref.shape[0]
-    ohm = _ohm_t(own_ref, BM, MAXC, dt)
-    zp_t = _dot_c1(rows_t * c_ref[0], ohm, acc_t)          # (k, BM)
-    out_ref[...] = zp_t.astype(dt).T
-    if with_diag:
-        (oq,) = outq_ref
-        Yq = rows_t * rows_t * (w_ref[0] * jnp.asarray(wq_scale, dt))
-        oq[...] = _dot_c1(Yq, ohm, acc_t).astype(dt).T
-
-
-def pos_scatter_kt_pallas(c_blk: Array, rows_t: Array, own: Array,
-                          num_out: int, block_rows: int,
-                          w_blk: Array | None = None, wq_scale: float = 1.0,
-                          interpret: bool = False):
-    """k-major pos_scatter_blocked over a pre-gathered (k, MAXC) stream:
-    c in slot order (n_blocks, MAXC); with ``w_blk`` also returns the
-    Jacobi-diag positive term from the same pass."""
-    from jax.experimental import pallas as pl
-
-    n_blocks, k, MAXC = rows_t.shape
-    dt = rows_t.dtype
-    with_diag = w_blk is not None
-    kern = functools.partial(_scatter_kt_kernel, with_diag, wq_scale)
-    out_shape = [jax.ShapeDtypeStruct((num_out, k), dt)]
-    out_specs = [pl.BlockSpec((block_rows, k), lambda i: (i, 0))]
-    if with_diag:
-        out_shape.append(jax.ShapeDtypeStruct((num_out, k), dt))
-        out_specs.append(pl.BlockSpec((block_rows, k), lambda i: (i, 0)))
-    res = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, k, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(rows_t, own.reshape(n_blocks, 1, MAXC),
-      c_blk.reshape(n_blocks, 1, MAXC),
-      (w_blk if with_diag else c_blk).reshape(n_blocks, 1, MAXC))
-    return (res[0], res[1]) if with_diag else res[0]
-
-
-def _grad_cross_tbl_kt_kernel(with_diag: bool, wq_scale: float, x_idx_ref,
-                              x_val_ref, rows_ref, own_ref, c_ref, w_ref,
-                              dense_ref, outg_ref, *outq_ref):
-    """k-major fused cross gradient (+ diag): one small in-kernel transpose
-    (the streamed dense block), table-space outputs accumulate (k, dk)."""
-    from jax.experimental import pallas as pl
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    rows_t = rows_ref[0]
-    k, MAXC = rows_t.shape
-    d = outg_ref.shape[1]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)        # (d, BM)
-    BM = xoh_t.shape[1]
-    ohm = _ohm_t(own_ref, BM, MAXC, dt)
-    zpos_t = _dot_c1(rows_t * c_ref[0], ohm, acc_t).astype(dt)  # (k, BM)
-    zb_t = zpos_t + dense_ref[...].T
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        outg_ref[...] = jnp.zeros_like(outg_ref)
-
-    outg_ref[...] += _dot_c1(zb_t, xoh_t, outg_ref.dtype)
-    if with_diag:
-        (oq,) = outq_ref
-        Yq = rows_t * rows_t * (w_ref[0] * jnp.asarray(wq_scale, dt))
-        posq_t = _dot_c1(Yq, ohm, acc_t).astype(dt)        # (k, BM)
-        xoh2_t = _xoh_block(x_idx_ref, x_val_ref, d, dt, square=True)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            oq[...] = jnp.zeros_like(oq)
-
-        oq[...] += _dot_c1(posq_t, xoh2_t, oq.dtype)
-
-
-def grad_cross_tbl_kt_pallas(d: int, x_idx_t: Array, x_val_t: Array,
-                             rows_t: Array, own: Array, c_blk: Array,
-                             dense: Array, block_rows: int,
-                             w_blk: Array | None = None,
-                             wq_scale: float = 1.0,
-                             interpret: bool = False):
-    """k-major grad_cross_tbl_pallas: identical math over the (k, MAXC)
-    stream; returns (d, k) [, (d, k)]."""
-    from jax.experimental import pallas as pl
-
-    p, m = x_idx_t.shape
-    n_blocks, k, MAXC = rows_t.shape
-    with_diag = w_blk is not None
-    dk = -(-d // 16) * 16
-    acc_t = jnp.promote_types(rows_t.dtype, jnp.float32)
-    kern = functools.partial(_grad_cross_tbl_kt_kernel, with_diag, wq_scale)
-    out_shape = [jax.ShapeDtypeStruct((k, dk), acc_t)]
-    out_specs = [pl.BlockSpec((k, dk), lambda i: (0, 0))]
-    if with_diag:
-        out_shape.append(jax.ShapeDtypeStruct((k, dk), acc_t))
-        out_specs.append(pl.BlockSpec((k, dk), lambda i: (0, 0)))
-    res = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, k, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(x_idx_t, x_val_t, rows_t, own.reshape(n_blocks, 1, MAXC),
-      c_blk.reshape(n_blocks, 1, MAXC),
-      (w_blk if with_diag else c_blk).reshape(n_blocks, 1, MAXC), dense)
-    if with_diag:
-        return res[0][:, :d].T, res[1][:, :d].T
-    return res[0][:, :d].T
-
-
-def _gap_kt_kernel(G: int, block_rows: int, rows_ref, own_ref, dT_ref,
-                   out_ref):
-    """k-major blocked residual gap: gap (1, MAXC) per block, flat slot
-    order (the OCFFM_BLK_YT consumer).  ``G`` blocks per grid step with a
-    statically unrolled inner loop — the per-block work is tiny ((k, MAXC)
-    read, (1, MAXC) write), so one-block grid steps are pipeline-latency-
-    bound (VERDICT r3 #8); batching amortizes the step overhead without
-    changing any math (each sub-block's arithmetic is identical)."""
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    dt = rows_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    for j in range(G):
-        rows_t = rows_ref[j]
-        k, MAXC = rows_t.shape
-        dTb = dT_ref[j * block_rows:(j + 1) * block_rows, :]  # (BM, k)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (block_rows, MAXC), 0)
-        ohm = (own_ref[j] == iota).astype(dt)                 # (BM, MAXC)
-        phig_t = _dotp(dTb.T, ohm, acc_t).astype(dt)          # (k, MAXC)
-        gap = jnp.sum((phig_t * rows_t).astype(acc_t), axis=0,
-                      keepdims=True)                          # (1, MAXC)
-        # out arrives as a (G, 1, MAXC) block (Mosaic wants the last two
-        # block dims tile-divisible OR spanning the full array dims — a
-        # (1, MAXC) slice of (n_blocks, MAXC) is neither, cf. the own/w
-        # input trick)
-        out_ref[j, :, :] = gap.astype(dt)
-
-
-def _gap_group(n_blocks: int, k: int, maxc: int, block_rows: int,
-               itemsize: int) -> int:
-    """Blocks per gap grid step: the largest divisor of n_blocks whose
-    per-step VMEM (stream + own + out, double-buffered, + the dT block)
-    stays under ~6MB, capped at 16.  OCFFM_BLK_GAP_G overrides (must
-    divide n_blocks; 1 = the round-3 one-block form)."""
-    env = os.environ.get("OCFFM_BLK_GAP_G", "auto").lower()
-    if env not in ("", "auto"):
-        g = max(1, int(env))
-        return g if n_blocks % g == 0 else 1
-    per = (max(8, k) + 2) * maxc * itemsize * 2 + block_rows * max(8, k) * 4
-    cap = max(1, min(16, (6 << 20) // max(per, 1)))
-    g = 1
-    for c in range(1, cap + 1):
-        if n_blocks % c == 0:
-            g = c
-    return g
-
-
-def pos_gap_kt_pallas(dT: Array, rows_t: Array, own: Array,
-                      block_rows: int, interpret: bool = False) -> Array:
-    """k-major pos_gap_blocked: returns the FLAT (n_blocks * MAXC,)
-    slot-order gap (permute with the layout's inv outside if stream order
-    is needed)."""
-    from jax.experimental import pallas as pl
-
-    n_blocks, k, MAXC = rows_t.shape
-    dt = rows_t.dtype
-    G = _gap_group(n_blocks, k, MAXC, block_rows, jnp.dtype(dt).itemsize)
-    kern = functools.partial(_gap_kt_kernel, G, block_rows)
-    out = pl.pallas_call(
-        kern,
-        grid=(n_blocks // G,),
-        in_specs=[
-            pl.BlockSpec((G, k, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((G, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((G * block_rows, k), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((G, 1, MAXC), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_blocks, 1, MAXC), dt),
-        interpret=interpret,
-    )(rows_t, own.reshape(n_blocks, 1, MAXC), dT)
-    return out.reshape(-1)
-
-
-def _hv_self_tbl_kt_kernel(x_idx_ref, x_val_ref, q1_ref, dd_ref, v_ref,
-                           out_ref):
-    """k-major fused self hv: dd arrives as a (1, rows) lane vector; the
-    output accumulates (k, dk)."""
-    from jax.experimental import pallas as pl
-
-    dt = q1_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    d = v_ref.shape[0]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)        # (d, BM)
-    phib_t = _dotp(v_ref[...], xoh_t, acc_t,
-                   contract0=True).astype(dt)              # (k, BM)
-    q1_t = q1_ref[...].T                                   # (k, BM)
-    s = dd_ref[...] * jnp.sum((q1_t * phib_t).astype(acc_t), axis=0,
-                              keepdims=True).astype(dt)    # (1, BM)
-    zpb_t = (s * q1_t).astype(dt)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += _dot_c1(zpb_t, xoh_t, out_ref.dtype)
-
-
-def hv_self_tbl_kt_pallas(V: Array, x_idx_t: Array, x_val_t: Array,
-                          Q1: Array, dd_row: Array, block_rows: int,
-                          interpret: bool = False) -> Array:
-    """k-major hv_self_tbl_pallas: ``dd_row`` is (1, rows); returns (d, k)."""
-    from jax.experimental import pallas as pl
-
-    d, k = V.shape
-    Vp = _pad_rows16(V)
-    dk = Vp.shape[0]
-    p, m = x_idx_t.shape
-    out = pl.pallas_call(
-        _hv_self_tbl_kt_kernel,
-        grid=(m // block_rows,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((1, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((dk, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((k, dk), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (k, dk), jnp.promote_types(V.dtype, jnp.float32)),
-        interpret=interpret,
-    )(x_idx_t, x_val_t, Q1, dd_row, Vp)
-    return out[:, :d].T
-
-
-def _grad_self_tbl_kt_kernel(with_diag: bool, x_idx_ref, x_val_ref, q1_ref,
-                             zdense_ref, dd_ref, own_ref, c_ref, outg_ref,
-                             *outq_ref):
-    """k-major fused self gradient (+ diag): zdense/dd arrive as (1, rows)
-    lane vectors; per-row positive sums via one tiny (1, MAXC) x (BM, MAXC)
-    contraction; outputs accumulate (k, dk)."""
-    from jax.experimental import pallas as pl
-
-    dt = q1_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)
-    MAXC = own_ref.shape[-1]
-    d = outg_ref.shape[1]
-    xoh_t = _xoh_block(x_idx_ref, x_val_ref, d, dt)        # (d, BM)
-    BM = xoh_t.shape[1]
-    ohm = _ohm_t(own_ref, BM, MAXC, dt)
-    zpos = _dot_c1(c_ref[0], ohm, acc_t)                   # (1, BM)
-    q1_t = q1_ref[...].T                                   # (k, BM)
-    zb = (zdense_ref[...] + zpos).astype(dt)               # (1, BM)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        outg_ref[...] = jnp.zeros_like(outg_ref)
-
-    outg_ref[...] += _dot_c1(zb * q1_t, xoh_t, outg_ref.dtype)
-    if with_diag:
-        (oq,) = outq_ref
-        xoh2_t = _xoh_block(x_idx_ref, x_val_ref, d, dt, square=True)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            oq[...] = jnp.zeros_like(oq)
-
-        oq[...] += _dot_c1((dd_ref[...] * q1_t * q1_t).astype(dt),
-                           xoh2_t, oq.dtype)
-
-
-def grad_self_tbl_kt_pallas(d: int, x_idx_t: Array, x_val_t: Array,
-                            Q1: Array, zdense_row: Array, own: Array,
-                            c_blk: Array, block_rows: int,
-                            dd_row: Array | None = None,
-                            interpret: bool = False):
-    """k-major grad_self_tbl_pallas: ``zdense_row``/``dd_row`` are
-    (1, rows); returns (d, k) [, (d, k)]."""
-    from jax.experimental import pallas as pl
-
-    p, m = x_idx_t.shape
-    k = Q1.shape[1]
-    n_blocks, MAXC = own.shape
-    with_diag = dd_row is not None
-    dk = -(-d // 16) * 16
-    acc_t = jnp.promote_types(Q1.dtype, jnp.float32)
-    kern = functools.partial(_grad_self_tbl_kt_kernel, with_diag)
-    out_shape = [jax.ShapeDtypeStruct((k, dk), acc_t)]
-    out_specs = [pl.BlockSpec((k, dk), lambda i: (0, 0))]
-    if with_diag:
-        out_shape.append(jax.ShapeDtypeStruct((k, dk), acc_t))
-        out_specs.append(pl.BlockSpec((k, dk), lambda i: (0, 0)))
-    res = pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((p, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((1, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, block_rows), lambda i: (0, i)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(x_idx_t, x_val_t, Q1, zdense_row,
-      dd_row if with_diag else jnp.zeros_like(zdense_row),
-      own.reshape(n_blocks, 1, MAXC), c_blk.reshape(n_blocks, 1, MAXC))
-    if with_diag:
-        return res[0][:, :d].T, res[1][:, :d].T
-    return res[0][:, :d].T
-
-
-def _hv_blk_kernel(w_scale: float, rows_ref, own_ref, w_ref, phi_ref,
-                   dense_ref, out_ref):
-    """One output block of the fused CG positive term (see
-    pos_hv_blocked_pallas).  Everything is block-local: the blocked layout
-    gives each window of BM output rows a contiguous padded slice of the
-    stream, so there is no scatter at all — out block i depends only on
-    stream block i and phi block i.  Pad entries carry own == BM, whose
-    one-hot column is all zeros, so they vanish from both matmuls.
-
-    Every intermediate is kept 2-D (Mosaic dislikes 1-D vectors) and the
-    one-hot is built TRANSPOSED, (BM, MAXC), so both MXU contractions need
-    no transpose copy; the weights fold into the one-hot's columns instead
-    of into pq (same product of the same floats per term)."""
-    dt = out_ref.dtype
-    acc_t = jnp.promote_types(dt, jnp.float32)  # f32 floor, keeps f64
-    BM = out_ref.shape[0]
-    rows = rows_ref[0]                                    # (MAXC, k)
-    MAXC = rows.shape[0]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (BM, MAXC), 0)
-    # own/w arrive as (1, 1, MAXC) blocks: Mosaic requires the last two
-    # block dims to be tile-divisible OR to span the full array dims — a
-    # (1, MAXC) slice of an (n_blocks, MAXC) array is neither, so the
-    # caller reshapes to (n_blocks, 1, MAXC) and the block spans (1, MAXC).
-    ohm_t = (own_ref[0] == iota).astype(dt)               # (BM, MAXC)
-    phib = phi_ref[...]                                   # (BM, k)
-    # phig = ohm^T-gather of phi rows BY MATMUL (MXU): contract the BM dim
-    phig = jax.lax.dot_general(
-        _up(ohm_t, acc_t), _up(phib, acc_t), (((0,), (0,)), ((), ())),
-        preferred_element_type=acc_t).astype(dt)          # (MAXC, k)
-    pq = jnp.sum(phig * rows, axis=1, keepdims=True)      # (MAXC, 1)
-    lhs = ohm_t * (w_ref[0] * jnp.asarray(w_scale, dt))
-    # out = (w-weighted one-hot) @ (pq * rows) : segment-sum BY MATMUL
-    acc = jax.lax.dot(_up(lhs, acc_t), _up(pq * rows, acc_t),
-                      preferred_element_type=acc_t)
-    acc = acc + jax.lax.dot(_up(phib, acc_t), _up(dense_ref[...], acc_t),
-                            preferred_element_type=acc_t)
-    out_ref[...] = acc.astype(dt)
-
-
-def pos_hv_blocked_pallas(phi: Array, rows: Array, own: Array, w_blk: Array,
-                          dense_mat: Array, num_out: int, block_rows: int,
-                          w_scale: float = 1.0,
-                          interpret: bool = False) -> Array:
-    """Mosaic kernel for the per-CG-iteration positive pass + fused omega
-    term:
-
-        out[i*BM:(i+1)*BM] = OneHot(own_i)^T @ (w_i * <phi_i-gather, rows_i>
-                              * rows_i)  +  phi_i @ dense_mat
-
-    Requires the pre-gathered stream (``rows``, gather_blocked_rows) and the
-    pre-permuted weights (``w_blk`` — both static per solve), so the kernel
-    touches NO random indices: every input is streamed sequentially block by
-    block and pipelined by Pallas's automatic double-buffered DMA, and each
-    grid step's output block is written directly (no dynamic_update_slice
-    round trip through HBM).  Mosaic cannot lower vectorized int indexing,
-    hence the one-hot matmul formulation (cf. module docstring)."""
-    from jax.experimental import pallas as pl
-
-    n_blocks, MAXC, k = rows.shape
-    dt = rows.dtype
-    kern = functools.partial(_hv_blk_kernel, w_scale)
-    # own/w as (n_blocks, 1, MAXC): blocks must span the full last-two dims
-    # (see the kernel's layout note) — the reshape only inserts an axis
-    return pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, MAXC, k), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, MAXC), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-            pl.BlockSpec((k, k), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((block_rows, k), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((num_out, k), dt),
-        interpret=interpret,
-    )(rows, own.reshape(n_blocks, 1, MAXC),
-      w_blk.reshape(n_blocks, 1, MAXC), phi, dense_mat)

@@ -1,10 +1,9 @@
 """Multi-host distributed initialization.
 
 The reference has no distributed backend at all (SURVEY.md §2.4: OpenMP on
-one shared-memory machine).  This is the TPU-native communication layer:
+one shared-memory machine).  This is the communication layer:
 ``jax.distributed`` for process bootstrap, then the same ``data``-axis mesh
-spanning every host's devices — XLA routes collectives over ICI within a
-slice and DCN across slices.
+spanning every host's devices — XLA hands the collectives to NCCL.
 
 Typical multi-host entry:
 
@@ -27,9 +26,9 @@ def init_distributed(
 ) -> bool:
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, uses the standard env vars (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the TPU pod metadata when on
-    TPU VMs).  Returns True when multi-process mode is active, False when
+    With no arguments, uses the env vars JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID; nothing discovers a cluster on its
+    own.  Returns True when multi-process mode is active, False when
     single-process (in which case nothing is initialized).
     """
     import jax
@@ -38,8 +37,7 @@ def init_distributed(
     env_np = num_processes or _int_env("JAX_NUM_PROCESSES")
     env_pid = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
 
-    on_tpu_pod = os.environ.get("TPU_WORKER_HOSTNAMES") and not env_addr
-    if not env_addr and not on_tpu_pod:
+    if not env_addr:
         return False
     if env_np is not None and env_np <= 1:
         return False
@@ -50,8 +48,8 @@ def init_distributed(
             process_id=env_pid,
         )
         return jax.process_count() > 1
-    except Exception:
-        # already initialized, or single-process TPU VM
+    except RuntimeError:
+        # already initialized
         return False
 
 

@@ -8,7 +8,7 @@ sharded over a ``jax.sharding.Mesh`` ``data`` axis instead, and XLA/GSPMD
 inserts the collectives the C++ never needed:
 
   * k x k Gram matrices (Q_c^T Q1 etc.) -> psum over shards (tiny payloads,
-    rides ICI)
+    ride the interconnect)
   * ``segment_sum`` by the *other* endpoint of a COO-sharded stream ->
     scatter-add + all-reduce
   * block tables W/H (D_f x k) -> replicated; per-table gradients all-reduce
@@ -150,7 +150,7 @@ def shard_params_model(
     """Row-shard large block tables (D_f x k) over the ``model`` axis;
     small tables stay replicated.  GSPMD turns lookups/updates against the
     sharded tables into the necessary collectives (all-to-all / all-gather)
-    — the TPU equivalent of parameter-server style sharded embedding tables
+    — the SPMD equivalent of parameter-server style sharded embedding tables
     (SURVEY.md §2.4 TP row)."""
     if axis not in mesh.axis_names:
         return replicate_params(params, mesh)

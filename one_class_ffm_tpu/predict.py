@@ -20,6 +20,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from . import platform
 from .data.dataset import pad_fields, read_data, split_fields
 from .models.blocks import BlockLayout
 from .train import load_checkpoint, load_text_model
@@ -119,7 +120,8 @@ def predict_topk_from_model(
         sl = slice(lo, lo + chunk)
         uidx = tuple(jnp.asarray(a[sl]) for a in u_pad.idx)
         uval = tuple(jnp.asarray(a[sl]) for a in u_pad.val)
-        vals, ids = score(uidx, uval, jnp.asarray(cold_all[sl]))
+        with platform.precision_scope(jnp.float32):
+            vals, ids = score(uidx, uval, jnp.asarray(cold_all[sl]))
         ids_out.append(np.asarray(ids))
         score_out.append(np.asarray(vals))
     ids = np.concatenate(ids_out)[: u_fd.m]
@@ -144,7 +146,7 @@ def main(argv=None) -> int:
     ap.add_argument("--popular-from", default=None,
                     help="labeled training file to build the popularity "
                          "prior for cold users (otherwise cold users score 0)")
-    ap.add_argument("--platform", default="auto", choices=["auto", "cpu", "tpu"])
+    ap.add_argument("--platform", default="auto", choices=["auto", "cpu", "gpu"])
     args = ap.parse_args(argv)
     if not args.model and not args.ckpt:
         ap.error("need a text model or --ckpt")
@@ -156,10 +158,12 @@ def main(argv=None) -> int:
             print(f"ocffm-predict: error: {what} not found: {path}",
                   file=sys.stderr)
             return 1
-    if args.platform != "auto":
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    try:
+        platform.select(args.platform)
+    except platform.PlatformError as e:
+        print(f"ocffm-predict: error: {e}", file=sys.stderr)
+        return 1
+    platform.enable_compile_cache()
     layout, k_rank, params = load_any_model(args.model, args.ckpt)
     popular = None
     if args.popular_from:

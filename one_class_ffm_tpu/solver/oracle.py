@@ -9,7 +9,7 @@ Everything here is O(m*n*k) dense float64 math derived directly from the loss
     yhat_ij = a_i + b_j + sum_{cross blocks} <P_i, Q_j>
 
 (the exact form the reference's debug ``func()`` brute-forces,
-ffm.cpp:1321-1351).  It exists to *gate* the fast TPU path: the JAX solver
+ffm.cpp:1321-1351).  It exists to *gate* the fast device path: the JAX solver
 must match this oracle block-for-block on tiny data.
 
 ``oracle_epoch`` runs the same alternating Gauss-Newton sweep as the fast
@@ -271,3 +271,155 @@ def oracle_epoch(prob: OracleProblem, params) -> Dict[str, Dict[int, Arr]]:
         S = solve_block_half(prob, params, b, False)
         params["H"][b.f12] = params["H"][b.f12] + S
     return params
+
+
+# ---------------------------------------------------------------------------
+# Random tiny problems and their device form
+# ---------------------------------------------------------------------------
+
+
+def random_sparse_dense(rng, m, d, max_nnz, binary_vals=False):
+    """Dense (m, d) matrix where each row has 1..max_nnz nonzeros."""
+    X = np.zeros((m, d))
+    for i in range(m):
+        nnz = rng.integers(1, max_nnz + 1)
+        cols = rng.choice(d, size=min(nnz, d), replace=False)
+        X[i, cols] = 1.0 if binary_vals else rng.uniform(0.5, 1.5, size=cols.size)
+    return X
+
+
+def make_problem(
+    rng,
+    m=13,
+    n=9,
+    Du=(7, 5),
+    Dv=(6, 4),
+    self_side=True,
+    freq=False,
+    omega=0.25,
+    lam=0.05,
+    r=-1.0,
+    max_nnz=2,
+    density=0.3,
+    cg_precond="jacobi",
+    k=3,
+):
+    """Random tiny OracleProblem + matching random params (the fixtures of
+    the oracle comparisons: tests and the chip smoke check)."""
+    Xu = [random_sparse_dense(rng, m, d, max_nnz) for d in Du]
+    Xv = [random_sparse_dense(rng, n, d, max_nnz) for d in Dv]
+    pos = rng.random((m, n)) < density
+    # every user and item gets at least one positive to keep metrics sane
+    for i in range(m):
+        if not pos[i].any():
+            pos[i, rng.integers(n)] = True
+    layout = BlockLayout.make(Du, Dv, self_side)
+    hp = HyperParams(k=k, lam=lam, omega=omega, r=r, freq=freq,
+                     cg_precond=cg_precond)
+    freq_u = [X.astype(bool).sum(axis=0).astype(np.float64) for X in Xu]
+    freq_v = [X.astype(bool).sum(axis=0).astype(np.float64) for X in Xv]
+    prob = OracleProblem(
+        layout=layout, hp=hp, Xu=Xu, Xv=Xv, pos=pos, freq_u=freq_u, freq_v=freq_v
+    )
+    params = {"W": {}, "H": {}}
+    for b in layout.all_blocks():
+        params["W"][b.f12] = rng.normal(scale=0.1 / np.sqrt(hp.k),
+                                        size=(b.d1, hp.k))
+        params["H"][b.f12] = rng.normal(scale=0.1 / np.sqrt(hp.k),
+                                        size=(b.d2, hp.k))
+    return prob, params
+
+
+def dense_to_padded(X, m_pad=None, dtype=np.float64):
+    """Dense (m, d) -> padded (idx, val) arrays with per-row nonzeros."""
+    m, d = X.shape
+    m_pad = m if m_pad is None else m_pad
+    nnz_rows = [np.nonzero(X[i])[0] for i in range(m)]
+    p = max(1, max(len(r) for r in nnz_rows))
+    idx = np.zeros((m_pad, p), dtype=np.int32)
+    val = np.zeros((m_pad, p), dtype=dtype)
+    for i, cols in enumerate(nnz_rows):
+        idx[i, : len(cols)] = cols
+        val[i, : len(cols)] = X[i, cols]
+    return idx, val
+
+
+def to_device_problem(prob, row_pad=0, dtype=np.float64, multiple=1,
+                      d_multiple=1, blocked_bm=0, blocked_shards=1):
+    """OracleProblem -> (meta, data) for FFMSolver at storage ``dtype``,
+    optionally padding rows.
+
+    ``multiple``: round padded row counts and nnz up to this multiple (for
+    sharding tests on an N-device mesh).  ``blocked_shards`` > 1: build the
+    labels SHARD-ALIGNED via the library pad_labels (shard_rows=) so the
+    blocked layout can run under shard_map."""
+    from ..data.dataset import PaddedFields, PaddedLabels
+    from .jax_solver import make_device_data
+
+    def up(x):
+        return -(-x // multiple) * multiple
+
+    m, n = prob.m, prob.n
+    m_pad, n_pad = up(m + row_pad), up(n + row_pad)
+
+    def side(Xs, freqs, mp):
+        pads = [dense_to_padded(X, mp, dtype) for X in Xs]
+        return PaddedFields(
+            m=mp,
+            m_true=Xs[0].shape[0],
+            f=len(Xs),
+            Ds=tuple(X.shape[1] for X in Xs),
+            idx=tuple(p[0] for p in pads),
+            val=tuple(p[1] for p in pads),
+            freq=tuple(f.astype(dtype) for f in freqs),
+            row_nnz=np.asarray(
+                sum((X != 0).sum(axis=1) for X in Xs).tolist() + [0] * (mp - Xs[0].shape[0]),
+                dtype=np.int32,
+            ),
+        )
+
+    u = side(prob.Xu, prob.freq_u, m_pad)
+    v = side(prob.Xv, prob.freq_v, n_pad)
+    uu, vv = np.nonzero(prob.pos)
+    nnz_true = uu.size
+    if blocked_shards > 1:
+        from ..data.dataset import Interactions, pad_labels
+
+        indptr = np.zeros(m + 1, dtype=np.int64)
+        np.add.at(indptr, uu + 1, 1)
+        y = pad_labels(
+            Interactions(m=m, n=n, indptr=np.cumsum(indptr), col=vv),
+            m_pad, n_pad, dtype=dtype,
+            shard_rows=m_pad // blocked_shards,
+        )
+    else:
+        nnz = up(nnz_true + (3 if row_pad else 0))
+        pu = np.full(nnz, m, dtype=np.int32)
+        pv = np.full(nnz, n, dtype=np.int32)
+        pw = np.zeros(nnz, dtype=dtype)
+        pu[:nnz_true] = uu
+        pv[:nnz_true] = vv
+        pw[:nnz_true] = 1.0
+        cu = np.zeros(m_pad, dtype=dtype)
+        cv = np.zeros(n_pad, dtype=dtype)
+        np.add.at(cu, uu, 1.0)
+        np.add.at(cv, vv, 1.0)
+        y = PaddedLabels(
+            nnz=nnz, nnz_true=nnz_true, u=pu, v=pv, w=pw,
+            count_u=cu, count_v=cv
+        )
+    return make_device_data(
+        u, v, y, prob.layout, prob.hp, dtype=dtype,
+        d_multiple=d_multiple, blocked_bm=blocked_bm,
+        blocked_shards=blocked_shards,
+    )
+
+
+def oracle_params_to_jax(params, dtype=np.float64):
+    import jax.numpy as jnp
+
+    return {
+        f12: {"W": jnp.asarray(params["W"][f12], dtype),
+              "H": jnp.asarray(params["H"][f12], dtype)}
+        for f12 in params["W"]
+    }

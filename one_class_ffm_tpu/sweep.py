@@ -13,9 +13,11 @@ output unchanged.  Improvements over grid.sh: resumable (complete logs are
 skipped), machine-readable summary, no interactivity.
 
 Note on ``jobs``: each job is an independent process with its own device
-context.  CPU sweeps parallelize freely; on a single TPU chip use jobs=1
-(or add ``"extra_args": ["--platform", "cpu"]``) — concurrent processes
-contending for one chip serialize at best.
+context.  CPU sweeps (``"extra_args": ["--platform", "cpu"]``) parallelize
+freely.  On GPUs each job gets a card of its own through
+``CUDA_VISIBLE_DEVICES`` and ``jobs`` is capped at the number of visible
+cards: a JAX process reserves most of a card's memory, so a second process
+on the same card fails.
 
 Spec format (JSON):
 {
@@ -137,15 +139,34 @@ def build_jobs(spec: Dict) -> List[Job]:
     return jobs
 
 
+def job_cards(spec: Dict, cards: Optional[List[str]] = None) -> List[str]:
+    """The GPU ids the sweep hands out, one per running job: none for a CPU
+    sweep, else ``cards`` (default: every visible GPU)."""
+    extra = list(spec.get("extra_args", []))
+    if "--platform" in extra and extra[extra.index("--platform") + 1:][:1] \
+            == ["cpu"]:
+        return []
+    if cards is None:
+        from .platform import visible_gpus
+
+        cards = visible_gpus()
+    return list(cards)
+
+
 def run_sweep(
-    spec: Dict, dry_run: bool = False, echo=print
+    spec: Dict, dry_run: bool = False, echo=print,
+    cards: Optional[List[str]] = None,
 ) -> Tuple[int, int, int]:
     """Run all incomplete jobs with bounded parallelism.
-    Returns (ran, skipped, failed)."""
+    Returns (ran, skipped, failed).  ``cards``: GPU ids to pin jobs to
+    (default: the visible GPUs; see job_cards)."""
     jobs = build_jobs(spec)
     epochs = int(spec.get("epochs", 100))
     eval_every = int(spec.get("eval_every", 10))
     n_jobs = int(spec.get("jobs", 1))
+    free_cards = job_cards(spec, cards)
+    if free_cards:
+        n_jobs = min(n_jobs, len(free_cards))
     pending = []
     skipped = 0
     for j in jobs:
@@ -159,7 +180,7 @@ def run_sweep(
             echo("would run: " + " ".join(j.cmd) + f" > {j.log}")
         return 0, skipped, 0
 
-    running: List[Tuple[subprocess.Popen, Job, object]] = []
+    running: List[Tuple[subprocess.Popen, Job, object, Optional[str]]] = []
     ran = failed = 0
 
     def reap(block: bool):
@@ -171,9 +192,11 @@ def run_sweep(
             done = [t for t in running if t[0].poll() is not None]
             if done:
                 for t in done:
-                    proc, job, fh = t
+                    proc, job, fh, card = t
                     fh.close()
                     running.remove(t)
+                    if card is not None:
+                        free_cards.append(card)
                     if proc.returncode == 0:
                         ran += 1
                         with open(job.log + ".done", "w") as mk:
@@ -192,9 +215,14 @@ def run_sweep(
             reap(block=True)
         os.makedirs(os.path.dirname(j.log), exist_ok=True)
         fh = open(j.log, "w")
-        proc = subprocess.Popen(j.cmd, stdout=fh, stderr=subprocess.STDOUT)
-        running.append((proc, j, fh))
-        echo(f"start: {j.tag}")
+        card = free_cards.pop(0) if free_cards else None
+        env = None
+        if card is not None:
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=card)
+        proc = subprocess.Popen(j.cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                env=env)
+        running.append((proc, j, fh, card))
+        echo(f"start: {j.tag}" + (f" (gpu {card})" if card else ""))
     while running:
         reap(block=True)
     return ran, skipped, failed

@@ -62,13 +62,12 @@ class TrainConfig:
     self_side: bool = True  # --ns sets False
     freq: bool = False
     seed: int = 0
-    # "auto": bfloat16 storage on TPU (1.6x faster epochs — bandwidth-bound
-    # gathers halve their bytes; quality gated by the 6-variant x 5-seed
-    # statistical parity run, docs/PARITY.md), float32 elsewhere
+    # "auto": the platform's default storage dtype (platform.DEFAULT_DTYPE:
+    # bfloat16 on the GPU, float32 on the CPU)
     dtype: str = "auto"
     eval_every: int = 10  # reference hard-codes 10 (ffm.cpp:1155)
     eval_chunk: int = 1024
-    row_multiple: int = 8  # pad rows for TPU tiling / even sharding
+    row_multiple: int = 8  # pad rows for even sharding and blocking
     jsonl_path: Optional[str] = None
     resume: bool = False
     profile_dir: Optional[str] = None  # jax.profiler trace output
@@ -85,11 +84,11 @@ class TrainConfig:
     # the catalog exceeds eval_item_threshold)
     eval_shard: str = "auto"
     eval_item_threshold: int = 1 << 18
-    # CG flavor: "auto" (jacobi except plain-COO bf16 — the measured
-    # winners per config), "jacobi", or "none" (reference-exact plain CG)
+    # CG flavor: "auto" (= "none", the reference-exact plain CG) or
+    # "jacobi" (diagonal-preconditioned opt-in)
     cg_precond: str = "auto"
-    # rows per block for the blocked-sorted positive ops (u-side segment
-    # sums as one-hot MXU matmuls).  0 disables.  Auto-disabled when the
+    # rows per block for the blocked-sorted positive ops (segment sums as
+    # per-block one-hot matmuls).  0 disables.  Auto-disabled when the
     # stream's row skew would over-pad (ops.make_blocked_layout).  Under a
     # data mesh the u-side runs SHARD-ALIGNED (pad_labels shard_rows= +
     # shard_map-local blocked ops — no per-iteration collectives); the
@@ -118,8 +117,8 @@ class TrainConfig:
     # mean by epoch 25, then feeds back through the Gauss-Newton steps and
     # the whole model explodes to |W| ~ 1e3 within 5 more epochs
     # (docs/PARITY.md incident log, round 5).  A periodic re-derivation
-    # resets the drift; one refresh is ~one gradient-pass of work, so at
-    # the default cadence the overhead is ~1-2%.  None = auto: every 10
+    # resets the drift; one refresh is about one gradient pass of work.
+    # None = auto: every 10
     # epochs at bf16 storage, off at f32/f64 (f32 holds parity to 100
     # epochs unrefreshed — PARITY.md sweep tier).  0 disables.
     refresh_every: Optional[int] = None
@@ -141,9 +140,9 @@ def _np_dtype(name: str):
     import jax.numpy as jnp
 
     if name == "auto":
-        import jax
+        from . import platform
 
-        name = "bfloat16" if jax.default_backend() not in ("cpu",) else "float32"
+        name = platform.default_dtype()
     return {"float32": jnp.float32, "float64": jnp.float64, "bfloat16": jnp.bfloat16}[
         name
     ]
@@ -613,6 +612,8 @@ class Trainer:
         import jax
         import jax.numpy as jnp
 
+        from . import platform
+
         ev = self.evaluator
         Pva, _ = ev._project_users(self.state["params"])
         meta = ev.meta
@@ -633,8 +634,9 @@ class Trainer:
             for lo in range(0, meta.mt_true, chunk):
                 sl = slice(lo, lo + chunk)
                 Pc = {f12: P[sl] for f12, P in Pva.items()}
-                _, ids = fn(Pc, ev.data["cold"][sl], Qc, bt,
-                            ev.data["popular"])
+                with platform.precision_scope(meta.dtype):
+                    _, ids = fn(Pc, ev.data["cold"][sl], Qc, bt,
+                                ev.data["popular"])
                 outs.append(np.asarray(ids))
             return np.concatenate(outs, axis=0)[: meta.mt_true]
 
@@ -649,7 +651,8 @@ class Trainer:
         for lo in range(0, meta.mt_true, chunk):
             sl = slice(lo, lo + chunk)
             Pc = {f12: P[sl] for f12, P in Pva.items()}
-            outs.append(np.asarray(score(Pc, ev.data["cold"][sl])))
+            with platform.precision_scope(meta.dtype):
+                outs.append(np.asarray(score(Pc, ev.data["cold"][sl])))
         return np.concatenate(outs, axis=0)[: meta.mt_true]
 
 

@@ -1,7 +1,7 @@
 """Orbax-backed native checkpoints (sharded, async-capable).
 
 The npz checkpoints in train.py are the simple single-host format; this is
-the TPU-native one: the params pytree is saved with its shardings through
+the sharding-native one: the params pytree is saved with its shardings through
 orbax, so multi-host sharded tables restore without gathering to one host.
 Both formats carry the same metadata (epoch, layout) and are
 interchangeable through the Trainer.
@@ -62,7 +62,7 @@ def load(ckpt_dir: str, shardings=None) -> Tuple[Dict[int, Any], int]:
             tree = ckptr.restore(path, restore_args=restore_args)
         else:
             # restore as host numpy: device/topology-independent (a
-            # checkpoint written on TPU must restore on CPU and vice versa)
+            # checkpoint written on a GPU must restore on the CPU and vice versa)
             meta_tree = ckptr.metadata(path).item_metadata
             restore_args = jax.tree.map(
                 lambda _: ocp.RestoreArgs(restore_type=np.ndarray), meta_tree

@@ -1,7 +1,7 @@
 """On-device CG iteration counts + epoch times at bench shapes.
 
 For each cg_precond mode: compile epoch_stats once, run N epochs from a
-fresh init, print the per-solve iteration vector and hard-synced epoch time.
+fresh init, print the per-solve iteration vector and the epoch time.
 Decides whether a preconditioner's iteration savings beat its diag-build
 cost at real scale (the CPU probe only shows toy-scale behavior).
 """
@@ -45,13 +45,13 @@ def main():
         solver = FFMSolver(meta, data)
         state = solver.init(jax.random.key(0))
         state, its = solver.epoch_stats(state)  # compile + warmup epoch
-        float(state[solver.yt_key].reshape(-1)[0])
+        jax.block_until_ready(state)
         print(f"[{mode}] warmup iters={np.asarray(its).tolist()}", flush=True)
         for ep in range(epochs):
             t0 = time.perf_counter()
             state, its = solver.epoch_stats(state)
             its_host = np.asarray(its)  # sync
-            float(state[solver.yt_key].reshape(-1)[0])
+            jax.block_until_ready(state)
             dt = time.perf_counter() - t0
             print(f"[{mode}] epoch {ep}: {dt*1e3:7.1f} ms "
                   f"iters={its_host.tolist()} total={int(its_host.sum())}",

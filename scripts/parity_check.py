@@ -1,4 +1,4 @@
-"""Statistical metric-parity harness: C++ reference vs the TPU framework.
+"""Statistical metric-parity harness: C++ reference vs this JAX trainer.
 
 The reference's init is an unseeded libc ``rand()`` (deterministic per
 process, /root/reference/ffm.cpp:71-78), so single-run comparisons prove
@@ -167,7 +167,8 @@ def _ref_cache_path(cache_dir, files, flags, epochs, k, lam, omega):
     return os.path.join(cache_dir, f"ref_{h.hexdigest()[:24]}.json")
 
 
-def run_pair(binary, files, flags, args, seed, k=None, lam=None, omega=None):
+def run_pair(binary, files, flags, args, seed, k=None, lam=None, omega=None,
+             card=None):
     item, train, va = files
     k = args.k if k is None else k
     lam = args.lam if lam is None else lam
@@ -200,8 +201,10 @@ def run_pair(binary, files, flags, args, seed, k=None, lam=None, omega=None):
                "--seed", str(seed), "--platform", args.our_platform,
                "--dtype", args.our_dtype,
                "--cg-precond", args.our_cg, *flags]
+    # one process per card: a JAX process reserves most of a GPU's memory
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=card) if card else None
     ours = subprocess.run(our_cmd, capture_output=True, text=True,
-                          cwd=REPO)
+                          cwd=REPO, env=env)
     if ours.returncode != 0:
         raise RuntimeError(f"ours failed: {ours.stderr[-500:]}")
     o = last_metric_row(ours.stdout)
@@ -248,7 +251,9 @@ def main() -> int:
                          "(toy) or three reference-grid cells (sweep)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="paired trials to run concurrently (each pair is "
-                         "already multithreaded; keep modest)")
+                         "already multithreaded; keep modest).  With a GPU "
+                         "--our-platform, capped at the visible cards: "
+                         "each concurrent trial gets a card of its own")
     ap.add_argument("--our-dtype", default="float32",
                     choices=["float32", "float64", "bfloat16"],
                     help="storage dtype for OUR trainer (bf16 quality gate)")
@@ -258,10 +263,9 @@ def main() -> int:
                          "reference-exact plain CG — the k64 deficit "
                          "diagnosis arm)")
     ap.add_argument("--our-platform", default="cpu",
-                    help="platform for OUR trainer: cpu (default) or auto "
-                         "(the real TPU — near-zero host CPU, so a bf16 "
-                         "tier can overlap a CPU-bound f32 matrix when "
-                         "every reference run is --ref-cache'd)")
+                    choices=["cpu", "gpu", "auto"],
+                    help="platform for OUR trainer: cpu (default), gpu, or "
+                         "auto (the GPU when one is visible)")
     ap.add_argument("--floor", type=float, default=None,
                     help="absolute tolerance floor on x100 metrics "
                          "(toy default 0.25; sweep default 0 — no floor)")
@@ -294,6 +298,18 @@ def main() -> int:
     else:
         cells = [(args.k, args.lam, args.omega)]
 
+    import queue
+
+    sys.path.insert(0, REPO)
+    from one_class_ffm_tpu.platform import visible_gpus
+
+    cards = [] if args.our_platform == "cpu" else visible_gpus()
+    if cards:
+        args.jobs = min(args.jobs, len(cards))
+    card_pool = queue.Queue()
+    for c in cards:
+        card_pool.put(c)
+
     binary = build_reference()
     all_ok = True
     md_lines = []
@@ -312,8 +328,14 @@ def main() -> int:
                 item, train, va, flags = gen_variant(
                     workdir, variant, args.users, args.items,
                     seed=1000 + s, skew=args.skew)
-                r, o = run_pair(binary, (item, train, va), flags, args,
-                                seed=s, k=k, lam=lam, omega=omega)
+                card = card_pool.get() if cards else None
+                try:
+                    r, o = run_pair(binary, (item, train, va), flags, args,
+                                    seed=s, k=k, lam=lam, omega=omega,
+                                    card=card)
+                finally:
+                    if card is not None:
+                        card_pool.put(card)
                 # print as each pair lands — long runs stay salvageable
                 print(f"[{cell_name} {variant} seed {s}] "
                       f"ref={json.dumps(r)}")

@@ -309,48 +309,13 @@ def test_cg_precond_auto_resolution(rng):
     assert FFMSolver(metaj, data).cg_precond == "jacobi"
 
 
-def test_full_epoch_matches_oracle_pallas_hv(rng, monkeypatch):
-    """Epochs routed through the Mosaic hv kernel (interpret mode on CPU)
-    must still match the fp64 oracle at 1e-6 — exercises the whole solver
-    wiring: forced pregather, pre-permuted weights, fused omega term."""
-    import functools
-
-    from one_class_ffm_tpu.ops import sparse_ops
-    from one_class_ffm_tpu.solver import jax_solver as JS
-
-    monkeypatch.setenv("OCFFM_PALLAS_HV", "1")
-    monkeypatch.setattr(
-        JS, "pos_hv_blocked_pallas",
-        functools.partial(sparse_ops.pos_hv_blocked_pallas, interpret=True))
-    prob, params = make_problem(rng)
-    meta, data = to_device_problem(prob, row_pad=3, blocked_bm=4)
-    assert meta.blocked_bm_u == 4
-    solver = FFMSolver(meta, data)
-    assert solver.pallas_hv_u and solver.pregather_u
-    state = solver.refresh_caches({"params": oracle_params_to_jax(params)})
-    with jax.disable_jit():
-        for _ in range(2):
-            ref_params = oracle.oracle_epoch(prob, params)
-            params = ref_params
-            state = solver.epoch(state)
-    for f12 in ref_params["W"]:
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["W"]), ref_params["W"][f12],
-            rtol=1e-6, atol=1e-9, err_msg=f"W block {f12}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["H"]), ref_params["H"][f12],
-            rtol=1e-6, atol=1e-9, err_msg=f"H block {f12}",
-        )
-
-
 @pytest.mark.parametrize("pregather",
                          [False, True, "pre_noyt", "pre_nogap"])
 @pytest.mark.parametrize("cfg", [dict(), dict(self_side=False),
                                  dict(cg_precond="none")])
 def test_full_epoch_matches_oracle_blocked_u(rng, cfg, pregather,
                                              monkeypatch):
-    """Epochs with the u-side blocked-sorted positive ops (one-hot MXU
+    """Epochs with the u-side blocked-sorted positive ops (one-hot
     block matmuls) must still match the fp64 oracle at 1e-6 — with and
     without the per-solve row pre-gather (gather_blocked_rows), with the
     blocked residual gap (pos_gap_blocked, which rides the pre-gather) on

@@ -1,42 +1,49 @@
-"""Sparse op implementations agree (XLA vs Pallas-interpret)."""
+"""Sparse op implementations agree with their plain references."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from one_class_ffm_tpu.ops.sparse_ops import (
-    _BM,
-    project_pallas,
-    project_xla,
-    scatter_xla,
-)
-
-
-def test_project_pallas_interpret_matches_xla(rng):
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, p, d, k = _BM * 2, 3, 64, 8
-    idx = jnp.asarray(rng.integers(0, d, size=(m, p)), jnp.int32)
-    val = jnp.asarray(rng.random((m, p)), jnp.float32)
-    W = jnp.asarray(rng.random((d, k)), jnp.float32)
-    ref = project_xla(idx, val, W)
-    with pltpu.force_tpu_interpret_mode():
-        got = project_pallas(idx, val, W)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5)
+from one_class_ffm_tpu.ops.sparse_ops import project, scatter
 
 
 def test_dispatcher_cpu_uses_xla(rng):
-    from one_class_ffm_tpu.ops.sparse_ops import project
-
+    """project == the dense X @ W it stands for (f64; repeated indices in
+    a row add up)."""
     m, p, d, k = 16, 2, 8, 4
-    idx = jnp.asarray(rng.integers(0, d, size=(m, p)), jnp.int32)
-    val = jnp.asarray(rng.random((m, p)), jnp.float64)
-    W = jnp.asarray(rng.random((d, k)), jnp.float64)
-    got = project(idx, val, W)  # cpu backend -> xla path, f64 works
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(project_xla(idx, val, W)), rtol=1e-12
-    )
+    idx = rng.integers(0, d, size=(m, p))
+    val = rng.random((m, p))
+    W = rng.random((d, k))
+    X = np.zeros((m, d))
+    np.add.at(X, (np.arange(m)[:, None], idx), val)
+    got = project(jnp.asarray(idx, jnp.int32), jnp.asarray(val),
+                  jnp.asarray(W))
+    np.testing.assert_allclose(np.asarray(got), X @ W, rtol=1e-12)
+
+
+@pytest.mark.parametrize("op", ["scatter", "pos_scatter"])
+def test_bf16_scatters_accumulate_in_f32(rng, op):
+    """bf16 scatter-adds accumulate at an f32 floor and round once: the
+    result equals the f32 scatter of the same bf16 inputs, rounded."""
+    from one_class_ffm_tpu.ops import sparse_ops as ops
+
+    m, n, k = 8, 300, 4
+    seg = jnp.asarray(rng.integers(0, m, size=n), jnp.int32)
+    Z = jnp.asarray(rng.normal(size=(n, k)), jnp.bfloat16)
+    # unit weights: every product is exact, so only the accumulation differs
+    if op == "scatter":
+        def run(z):
+            return ops.scatter(seg[:, None], jnp.ones((n, 1), z.dtype), z, m)
+    else:
+        def run(z):
+            return ops.pos_scatter(jnp.ones(n, z.dtype), z, jnp.arange(n),
+                                   seg, m, max_chunk=64)
+    got = run(Z)
+    ref = run(Z.astype(jnp.float32)).astype(jnp.bfloat16)
+    assert got.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                  np.asarray(ref, np.float32))
 
 
 def test_scatter_transpose_consistency(rng):
@@ -46,8 +53,8 @@ def test_scatter_transpose_consistency(rng):
     val = jnp.asarray(rng.random((m, p)), jnp.float64)
     W = jnp.asarray(rng.random((d, k)), jnp.float64)
     Z = jnp.asarray(rng.random((m, k)), jnp.float64)
-    lhs = float(jnp.sum(project_xla(idx, val, W) * Z))
-    rhs = float(jnp.sum(W * scatter_xla(idx, val, Z, d)))
+    lhs = float(jnp.sum(project(idx, val, W) * Z))
+    rhs = float(jnp.sum(W * scatter(idx, val, Z, d)))
     np.testing.assert_allclose(lhs, rhs, rtol=1e-12)
 
 
@@ -96,24 +103,6 @@ def test_solver_matches_oracle_with_tiny_chunks(rng, monkeypatch):
             np.asarray(got["params"][f12]["W"]), ref["W"][f12],
             rtol=1e-6, atol=1e-9,
         )
-
-
-def test_scatter_onehot_matches_segment_sum():
-    """The MXU one-hot scatter must equal the segment_sum path (f64 tight)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from one_class_ffm_tpu.ops.sparse_ops import scatter_onehot_xla, scatter_xla
-
-    rng = np.random.default_rng(3)
-    for m, p, d, k in [(100, 2, 17, 3), (9000, 1, 700, 8), (257, 3, 33, 4)]:
-        idx = jnp.asarray(rng.integers(0, d, (m, p)), jnp.int32)
-        val = jnp.asarray(rng.normal(size=(m, p)))
-        Z = jnp.asarray(rng.normal(size=(m, k)))
-        ref = scatter_xla(idx, val, Z, d)
-        got = scatter_onehot_xla(idx, val, Z, d)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-12, atol=1e-12)
 
 
 def test_pos_gram_matches_naive(rng):
@@ -282,38 +271,6 @@ def test_blocked_hv_w_blk_and_dense_fusion(rng):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_pos_hv_blocked_pallas_interpret(rng):
-    """The Mosaic hv kernel (interpret mode) matches the XLA blocked path
-    fed the same pre-gathered rows / pre-permuted weights / fused dense."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        gather_blocked_rows,
-        make_blocked_layout,
-        pos_hv_blocked,
-        pos_hv_blocked_pallas,
-    )
-
-    num, n_other, k, nnz, BM = 24, 11, 5, 93, 4
-    scale = 0.73
-    u = np.sort(rng.integers(0, num, size=nnz)).astype(np.int32)
-    v = rng.integers(0, n_other, size=nnz).astype(np.int32)
-    blk = make_blocked_layout(u, v, num, block_rows=BM, max_pad_ratio=50.0)
-    B = jnp.asarray(rng.normal(size=(n_other, k)), jnp.float32)
-    phi = jnp.asarray(rng.normal(size=(num, k)), jnp.float32)
-    w_raw = jnp.asarray(rng.random(nnz), jnp.float32)
-    take, src, own = (jnp.asarray(blk[s]) for s in ("take", "src", "own"))
-    w_blk = w_raw[jnp.asarray(blk["src"])]
-    rows = gather_blocked_rows(B, take)
-    dmat = jnp.asarray(rng.normal(size=(k, k)), jnp.float32)
-
-    ref = pos_hv_blocked(phi, B, None, take, src, own, num, BM,
-                         rows=rows, w_blk=w_blk, w_scale=scale,
-                         dense_mat=dmat)
-    got = pos_hv_blocked_pallas(phi, rows, own, w_blk, dmat, num, BM,
-                                w_scale=scale, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-6)
-
-
 def test_blocked_layout_rejections(rng):
     from one_class_ffm_tpu.ops.sparse_ops import make_blocked_layout
 
@@ -388,7 +345,7 @@ def test_blocked_mixed_dispatch_under_skew(rng):
 
 
 def test_pos_gap_blocked_matches_pos_dot(rng):
-    """The blocked residual gap (one-hot MXU gather + sequential stream +
+    """The blocked residual gap (one-hot gather + sequential stream +
     static inverse permute) equals the plain pos_dot "gaps" form on every
     kept entry, on both segment sides (sorted u, argsorted v), with dropped
     zero-weight pads excluded (their slots return arbitrary values that the
@@ -504,432 +461,55 @@ def test_seg_sum_and_expand_blocked(rng):
     np.testing.assert_allclose(np.asarray(got2), ref2, rtol=1e-12, atol=0)
 
 
-def test_hv_self_tbl_pallas_matches_composition(rng):
-    """Fused self-block table kernel == project -> diag -> scatter chain."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        hv_self_tbl_pallas, project_xla, scatter_xla,
-    )
-
-    m, p, d, k, BM = 24, 2, 11, 5, 4
-    idx = jnp.asarray(rng.integers(0, d, size=(m, p)), jnp.int32)
-    val = jnp.asarray(rng.random((m, p)))
-    V = jnp.asarray(rng.normal(size=(d, k)))
-    Q1 = jnp.asarray(rng.normal(size=(m, k)))
-    dd = jnp.asarray(rng.random(m))
-
-    phi = project_xla(idx, val, V)
-    s = dd * jnp.sum(Q1 * phi, axis=1)
-    ref = scatter_xla(idx, val, s[:, None] * Q1, d)
-    got = hv_self_tbl_pallas(V, idx.T, val.T, Q1, dd[:, None], BM,
-                             interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-10, atol=1e-12)
-
-
-def test_pos_hv_tbl_pallas_matches_composition(rng):
-    """Fused cross-block table kernel == project -> blocked hv -> scatter."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        gather_blocked_rows,
-        make_blocked_layout,
-        pos_hv_blocked,
-        pos_hv_tbl_pallas,
-        project_xla,
-        scatter_xla,
-    )
-
-    num, n_other, p, d, k, nnz, BM = 24, 11, 2, 13, 5, 93, 4
-    scale = 0.81
-    u = np.sort(rng.integers(0, num, size=nnz)).astype(np.int32)
-    v = rng.integers(0, n_other, size=nnz).astype(np.int32)
-    blk = make_blocked_layout(u, v, num, block_rows=BM, max_pad_ratio=50.0)
-    B = jnp.asarray(rng.normal(size=(n_other, k)))
-    w_raw = jnp.asarray(rng.random(nnz))
-    take, src, own = (jnp.asarray(blk[s]) for s in ("take", "src", "own"))
-    w_blk = w_raw[src]
-    rows = gather_blocked_rows(B, take)
-    dmat = jnp.asarray(rng.normal(size=(k, k)))
-    idx = jnp.asarray(rng.integers(0, d, size=(num, p)), jnp.int32)
-    val = jnp.asarray(rng.random((num, p)))
-    V = jnp.asarray(rng.normal(size=(d, k)))
-
-    phi = project_xla(idx, val, V)
-    zp = pos_hv_blocked(phi, B, None, take, src, own, num, BM,
-                        rows=rows, w_blk=w_blk, w_scale=scale,
-                        dense_mat=dmat)
-    ref = scatter_xla(idx, val, zp, d)
-    got = pos_hv_tbl_pallas(V, idx.T, val.T, rows, own, w_blk, dmat, BM,
-                            w_scale=scale, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-9, atol=1e-11)
-
-
-def test_solver_fused_tbl_matches_oracle(rng, monkeypatch):
-    """Full epochs with the fused table kernels forced (interpret mode on
-    CPU) still match the fp64 oracle — every non-identity small-D solve
-    routes through pos_hv_tbl_pallas / hv_self_tbl_pallas."""
-    from conftest import make_problem, oracle_params_to_jax, to_device_problem
-    from one_class_ffm_tpu.solver import oracle
-    from one_class_ffm_tpu.solver.jax_solver import FFMSolver
-
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
-    monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
-    prob, params = make_problem(rng)
-    meta, data = to_device_problem(prob, multiple=4, blocked_bm=4)
-    assert meta.blocked_bm_u == 4 and meta.blocked_bm_v == 4
-    solver = FFMSolver(meta, data)
-    assert solver.fused_tbl and solver.fused_interpret
-    # at least one solve must actually route through the fused kernels
-    blocks = meta.layout.all_blocks()
-    assert any(solver._fused_tbl_side(b, first, meta.pad_d(
-        b.d1 if first else b.d2)) is not None
-        for b in blocks for first in (True, False))
-    state = solver.refresh_caches({"params": oracle_params_to_jax(params)})
-    ref = params
-    for _ in range(2):
-        ref = oracle.oracle_epoch(prob, ref)
-    for _ in range(2):
-        state = solver.epoch(state)
-    for f12 in ref["W"]:
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["W"]), ref["W"][f12],
-            rtol=1e-6, atol=1e-9,
-        )
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["H"]), ref["H"][f12],
-            rtol=1e-6, atol=1e-9,
-        )
-
-
-def test_grad_self_tbl_pallas_matches_composition(rng):
-    """Fused self-block gradient kernel == seg-sum -> dense add -> scatter
-    chain, incl. the fused Jacobi diag ((X^2)^T dd Q1^2)."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        grad_self_tbl_pallas, make_blocked_layout, scatter_xla,
-    )
-
-    m, p, d, k, nnz, BM = 24, 2, 11, 5, 93, 4
-    u = np.sort(rng.integers(0, m, size=nnz)).astype(np.int32)
-    v = rng.integers(0, 16, size=nnz).astype(np.int32)
-    blk = make_blocked_layout(u, v, m, block_rows=BM, max_pad_ratio=50.0)
-    idx = jnp.asarray(rng.integers(0, d, size=(m, p)), jnp.int32)
-    val = jnp.asarray(rng.random((m, p)))
-    Q1 = jnp.asarray(rng.normal(size=(m, k)))
-    zdense = jnp.asarray(rng.normal(size=m))
-    dd = jnp.asarray(rng.random(m))
-    c = rng.normal(size=nnz)
-    msk = (blk["own"] < BM).astype(np.float64)
-    c_blk = jnp.asarray(c[blk["src"]] * msk)
-
-    zpos = np.zeros(m)
-    np.add.at(zpos, u, c)
-    z = np.asarray(zdense) + zpos
-    ref_g = scatter_xla(idx, val, jnp.asarray(z)[:, None] * Q1, d)
-    ref_q = scatter_xla(idx, val * val, dd[:, None] * Q1 * Q1, d)
-
-    got_g, got_q = grad_self_tbl_pallas(
-        d, idx.T, val.T, Q1, zdense[:, None], jnp.asarray(blk["own"]), c_blk,
-        BM, dd=dd[:, None], interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(got_q), np.asarray(ref_q),
-                               rtol=1e-9, atol=1e-11)
-    got_g2 = grad_self_tbl_pallas(
-        d, idx.T, val.T, Q1, zdense[:, None], jnp.asarray(blk["own"]), c_blk,
-        BM, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g2), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-
-
-def test_grad_cross_tbl_pallas_matches_composition(rng):
-    """Fused cross-block gradient kernel == blocked scatter -> dense add ->
-    X^T scatter chain, incl. the fused diag positive term."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        gather_blocked_rows,
-        make_blocked_layout,
-        grad_cross_tbl_pallas,
-        pos_scatter_blocked,
-        scatter_xla,
-    )
-
-    num, n_other, p, d, k, nnz, BM = 24, 11, 2, 13, 5, 93, 4
-    wq_scale = 0.77
-    u = np.sort(rng.integers(0, num, size=nnz)).astype(np.int32)
-    v = rng.integers(0, n_other, size=nnz).astype(np.int32)
-    blk = make_blocked_layout(u, v, num, block_rows=BM, max_pad_ratio=50.0)
-    B = jnp.asarray(rng.normal(size=(n_other, k)))
-    take, src, own = (jnp.asarray(blk[s]) for s in ("take", "src", "own"))
-    rows = gather_blocked_rows(B, take)
-    idx = jnp.asarray(rng.integers(0, d, size=(num, p)), jnp.int32)
-    val = jnp.asarray(rng.random((num, p)))
-    dense = jnp.asarray(rng.normal(size=(num, k)))
-    c = jnp.asarray(rng.normal(size=nnz))
-    w_raw = jnp.asarray(rng.random(nnz))
-    w_blk = w_raw[src] * jnp.asarray((blk["own"] < BM).astype(np.float64))
-
-    zpos = pos_scatter_blocked(c, B, take, src, own, num, BM)
-    ref_g = scatter_xla(idx, val, dense + zpos, d)
-    posq = pos_scatter_blocked(wq_scale * w_raw, B * B, take, src, own,
-                               num, BM)
-    ref_q = scatter_xla(idx, val * val, posq, d)
-
-    got_g, got_q = grad_cross_tbl_pallas(
-        d, idx.T, val.T, rows, own, c[src], dense, BM, w_blk=w_blk,
-        wq_scale=wq_scale, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(got_q), np.asarray(ref_q),
-                               rtol=1e-9, atol=1e-11)
-    got_g2 = grad_cross_tbl_pallas(
-        d, idx.T, val.T, rows, own, c[src], dense, BM, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g2), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-
-
-def _kt_fixture(rng, num=24, n_other=11, p=2, d=13, k=5, nnz=93, BM=4):
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        gather_blocked_rows, gather_blocked_rows_t, make_blocked_layout,
-    )
-
-    u = np.sort(rng.integers(0, num, size=nnz)).astype(np.int32)
-    v = rng.integers(0, n_other, size=nnz).astype(np.int32)
-    blk = make_blocked_layout(u, v, num, block_rows=BM, max_pad_ratio=50.0)
-    B = jnp.asarray(rng.normal(size=(n_other, k)))
-    take, src, own = (jnp.asarray(blk[s]) for s in ("take", "src", "own"))
-    rows = gather_blocked_rows(B, take)
-    rows_t = gather_blocked_rows_t(B, take)
-    np.testing.assert_array_equal(
-        np.asarray(rows_t), np.asarray(rows).transpose(0, 2, 1))
-    idx = jnp.asarray(rng.integers(0, d, size=(num, p)), jnp.int32)
-    val = jnp.asarray(rng.random((num, p)))
-    return dict(num=num, d=d, k=k, BM=BM, B=B, take=take, src=src, own=own,
-                rows=rows, rows_t=rows_t, idx=idx, val=val, blk=blk)
-
-
-def test_kt_hv_and_scatter_match_row_major(rng):
-    """k-major plain hv / scatter / gap kernels (interpret) == their
-    row-major blocked counterparts to fp reassociation tolerance."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        pos_gap_blocked,
-        pos_gap_kt_pallas,
-        pos_hv_blocked,
-        pos_hv_kt_pallas,
-        pos_scatter_blocked,
-        pos_scatter_kt_pallas,
-    )
-
-    fx = _kt_fixture(rng)
-    num, k, BM = fx["num"], fx["k"], fx["BM"]
-    phi = jnp.asarray(rng.normal(size=(num, k)))
-    w_blk = jnp.asarray(rng.random(fx["own"].shape))
-    dmat = jnp.asarray(rng.normal(size=(k, k)))
-    scale = 0.61
-
-    ref = pos_hv_blocked(phi, None, None, None, None, fx["own"], num, BM,
-                         rows=fx["rows"], w_blk=w_blk, w_scale=scale,
-                         dense_mat=dmat)
-    got = pos_hv_kt_pallas(phi, fx["rows_t"], fx["own"], w_blk, dmat, num,
-                           BM, w_scale=scale, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-9, atol=1e-11)
-
-    c_blk = jnp.asarray(rng.normal(size=fx["own"].shape))
-    wq_blk = jnp.asarray(rng.random(fx["own"].shape))
-    ref_s, ref_q = pos_scatter_blocked(
-        None, None, fx["take"], None, fx["own"], num, BM,
-        diag_w_blk=wq_blk, rows=fx["rows"], coeff_blk=c_blk)
-    got_s, got_q = pos_scatter_kt_pallas(
-        c_blk, fx["rows_t"], fx["own"], num, BM, w_blk=wq_blk,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(got_s), np.asarray(ref_s),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(got_q), np.asarray(ref_q),
-                               rtol=1e-9, atol=1e-11)
-
-    dT = jnp.asarray(rng.normal(size=(num, k)))
-    ref_g = pos_gap_blocked(dT, fx["rows"], fx["own"], None, BM)
-    got_g = pos_gap_kt_pallas(dT, fx["rows_t"], fx["own"], BM,
-                              interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-
-
-def test_kt_tbl_kernels_match_row_major(rng):
-    """k-major fused table kernels (interpret) == the row-major fused
-    kernels (cross hv, cross grad + diag, self hv, self grad + diag)."""
-    from one_class_ffm_tpu.ops.sparse_ops import (
-        grad_cross_tbl_kt_pallas,
-        grad_cross_tbl_pallas,
-        grad_self_tbl_kt_pallas,
-        grad_self_tbl_pallas,
-        hv_self_tbl_kt_pallas,
-        hv_self_tbl_pallas,
-        pos_hv_tbl_kt_pallas,
-        pos_hv_tbl_pallas,
-    )
-
-    fx = _kt_fixture(rng)
-    num, d, k, BM = fx["num"], fx["d"], fx["k"], fx["BM"]
-    idx_t, val_t = fx["idx"].T, fx["val"].T
-    V = jnp.asarray(rng.normal(size=(d, k)))
-    w_blk = jnp.asarray(rng.random(fx["own"].shape))
-    dmat = jnp.asarray(rng.normal(size=(k, k)))
-    scale = 0.77
-
-    ref = pos_hv_tbl_pallas(V, idx_t, val_t, fx["rows"], fx["own"], w_blk,
-                            dmat, BM, w_scale=scale, interpret=True)
-    got = pos_hv_tbl_kt_pallas(V, idx_t, val_t, fx["rows_t"], fx["own"],
-                               w_blk, dmat, BM, w_scale=scale,
-                               interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-9, atol=1e-11)
-
-    c_blk = jnp.asarray(rng.normal(size=fx["own"].shape))
-    dense = jnp.asarray(rng.normal(size=(num, k)))
-    ref_g, ref_q = grad_cross_tbl_pallas(
-        d, idx_t, val_t, fx["rows"], fx["own"], c_blk, dense, BM,
-        w_blk=w_blk, wq_scale=0.9, interpret=True)
-    got_g, got_q = grad_cross_tbl_kt_pallas(
-        d, idx_t, val_t, fx["rows_t"], fx["own"], c_blk, dense, BM,
-        w_blk=w_blk, wq_scale=0.9, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_g), np.asarray(ref_g),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(got_q), np.asarray(ref_q),
-                               rtol=1e-9, atol=1e-11)
-
-    Q1 = jnp.asarray(rng.normal(size=(num, k)))
-    dd = jnp.asarray(rng.random(num))
-    ref_h = hv_self_tbl_pallas(V, idx_t, val_t, Q1, dd[:, None], BM,
-                               interpret=True)
-    got_h = hv_self_tbl_kt_pallas(V, idx_t, val_t, Q1, dd[None, :], BM,
-                                  interpret=True)
-    np.testing.assert_allclose(np.asarray(got_h), np.asarray(ref_h),
-                               rtol=1e-9, atol=1e-11)
-
-    zdense = jnp.asarray(rng.normal(size=num))
-    ref_sg, ref_sq = grad_self_tbl_pallas(
-        d, idx_t, val_t, Q1, zdense[:, None], fx["own"], c_blk, BM,
-        dd=dd[:, None], interpret=True)
-    got_sg, got_sq = grad_self_tbl_kt_pallas(
-        d, idx_t, val_t, Q1, zdense[None, :], fx["own"], c_blk, BM,
-        dd_row=dd[None, :], interpret=True)
-    np.testing.assert_allclose(np.asarray(got_sg), np.asarray(ref_sg),
-                               rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(got_sq), np.asarray(ref_sq),
-                               rtol=1e-9, atol=1e-11)
-
-
-def test_solver_kt_matches_oracle(rng, monkeypatch):
-    """Full epochs with the k-major kernels forced (interpret mode on CPU)
-    still match the fp64 oracle — the whole kt stack: fused kt table
-    kernels, kt scatter for identity sides, kt gap, kt pregather."""
-    from conftest import make_problem, oracle_params_to_jax, to_device_problem
-    from one_class_ffm_tpu.solver import oracle
-    from one_class_ffm_tpu.solver.jax_solver import FFMSolver
-
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
-    prob, params = make_problem(rng)
-    meta, data = to_device_problem(prob, multiple=4, blocked_bm=4)
-    solver = FFMSolver(meta, data)
-    assert solver.kt and solver.kt_u and solver.kt_v
-    state = solver.refresh_caches({"params": oracle_params_to_jax(params)})
-    ref = params
-    for _ in range(2):
-        ref = oracle.oracle_epoch(prob, ref)
-    for _ in range(2):
-        state = solver.epoch(state)
-    for f12 in ref["W"]:
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["W"]), ref["W"][f12],
-            rtol=1e-6, atol=1e-9,
-        )
-        np.testing.assert_allclose(
-            np.asarray(state["params"][f12]["H"]), ref["H"][f12],
-            rtol=1e-6, atol=1e-9,
-        )
-
-
 def test_solver_perf_gates(rng, monkeypatch):
-    """The performance-gate decisions (pregather caps, kt/fused VMEM
-    estimates, mesh fallback) respond to their knobs — regressions here
-    silently cost 40%+ of throughput or OOM the chip."""
+    """The performance-gate decisions (pregather caps, the device-memory
+    budget, mesh fallback, two-tier engagement) respond to their knobs —
+    a regression here silently turns the blocked stream path off."""
     from conftest import make_problem, to_device_problem
     from one_class_ffm_tpu.solver.jax_solver import FFMSolver
 
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
     prob, params = make_problem(rng)
     meta, data = to_device_problem(prob, multiple=4, blocked_bm=4)
 
     s = FFMSolver(meta, data)
     assert s.pregather_u and s.pregather_v  # default: on under the caps
-    assert s.kt_u and s.kt_v
     assert s.blk_yt  # carry auto-engages when both sides pregather
 
-    # per-stream HBM cap turns pregather (and with it the carry) off
+    # per-stream cap turns pregather (and with it the carry) off
     monkeypatch.setenv("OCFFM_BLK_PREGATHER_MB", "0")
     s2 = FFMSolver(meta, data)
     assert not s2.pregather_u and not s2.pregather_v and not s2.blk_yt
     monkeypatch.delenv("OCFFM_BLK_PREGATHER_MB")
 
-    # kt VMEM estimate: a tiny budget rejects the k-major kernels and the
-    # fused table kernels per side
-    monkeypatch.setenv("OCFFM_FUSED_TBL_VMEM_MB", "0")
-    s3 = FFMSolver(meta, data)
-    assert not s3.kt_u and not s3.kt_v
-    b0 = next(b for b in meta.layout.cross_blocks())
-    assert s3._fused_tbl_side(b0, True, meta.pad_d(b0.d1)) is None
-    monkeypatch.delenv("OCFFM_FUSED_TBL_VMEM_MB")
-
-    # fused D cap: table dims above it stay on the generic paths
-    monkeypatch.setenv("OCFFM_FUSED_TBL_D", "1")
-    meta4, data4 = to_device_problem(prob, multiple=4, blocked_bm=4)
-    s4 = FFMSolver(meta4, data4)
-    assert all(
-        s4._fused_tbl_side(b, first, meta4.pad_d(b.d1 if first else b.d2))
-        is None
-        for b in meta4.layout.all_blocks() for first in (True, False))
-    monkeypatch.delenv("OCFFM_FUSED_TBL_D")
-
-    # under a PLAIN mesh (no shard-aligned stream) everything stream-
-    # kernel-side stays off — the plain GSPMD ops are that mesh path
+    # under a PLAIN mesh (no shard-aligned stream) the blocked stream stays
+    # off — the plain GSPMD ops are that mesh path
     import jax
     from jax.sharding import Mesh
 
     mesh = Mesh(jax.devices()[:2], ("data",))
     s5 = FFMSolver(meta, data, mesh=mesh)
-    assert not s5.pregather_u and not s5.kt_u and not s5.blk_yt
-    assert s5._fused_tbl_side(b0, True, meta.pad_d(b0.d1)) is None
+    assert not s5.pregather_u and not s5.blk_yt
 
-    # under the SHARD-ALIGNED mesh the full round-3 stack stays ON
-    # (kt + fused + pregather both sides + carry, shard_map-local) —
-    # multi-chip must run at round-3 kernel speed (VERDICT r3 #1)
+    # under the SHARD-ALIGNED mesh the blocked stack stays ON (pregather
+    # both sides + carry + blocked gap, shard_map-local)
     S, BM = 2, 4
     prob6, _ = make_problem(rng, m=19, n=13)
     meta6, data6 = to_device_problem(
         prob6, row_pad=1, multiple=S * BM, blocked_bm=BM, blocked_shards=S)
     assert meta6.blocked_bm_u == BM and meta6.blocked_bm_v == BM
     s6 = FFMSolver(meta6, data6, mesh=mesh)
-    assert s6.kt_u and s6.kt_v and s6.blk_yt and s6.blk_gap
+    assert s6.blk_yt and s6.blk_gap
     assert s6.pregather_u and s6.pregather_v and s6.blk_v_on
-    b6 = next(b for b in meta6.layout.cross_blocks())
-    assert s6._fused_tbl_side(
-        b6, True, meta6.pad_d(b6.d1), "hv_cross", kt=True) is not None
 
-    # the carry (and with it kt/fused) off under shards -> the round-2
-    # sharded fallback: u row-major blocked, v plain
+    # the carry off under shards -> the sharded fallback: u blocked, v plain
     monkeypatch.setenv("OCFFM_BLK_YT", "0")
     s7 = FFMSolver(meta6, data6, mesh=mesh)
-    assert not s7.blk_yt and not s7.kt_u and not s7.kt_v
+    assert not s7.blk_yt
     assert s7.pregather_u and not s7.pregather_v and not s7.blk_v_on
-    assert s7._fused_tbl_side(
-        b6, True, meta6.pad_d(b6.d1), "hv_cross", kt=False) is None
     monkeypatch.delenv("OCFFM_BLK_YT")
 
     # popularity skew: the two-tier split keeps the v layout (head keys
-    # present) and with it the WHOLE kernel stack — round 3 lost
-    # kt/fused/carry here (the layout rejected at the pad-ratio guard)
+    # present) and with it the whole blocked stack
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "8")
     prob8, _ = make_problem(rng, m=40, n=24, density=0.1)
     pos8 = __import__("numpy").asarray(prob8.pos).copy()
@@ -939,16 +519,16 @@ def test_solver_perf_gates(rng, monkeypatch):
                                      blocked_bm=4)
     s8 = FFMSolver(meta8, data8)
     assert s8.hd_v and "blk_v_hd_row" in data8
-    assert s8.kt_u and s8.kt_v and s8.blk_yt and s8.pregather_v
-    # ... and with the split disabled the side rejects as in round 3
+    assert s8.blk_yt and s8.pregather_v
+    # ... and with the split disabled the side rejects outright
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "0")
     meta9, data9 = to_device_problem(prob8, row_pad=1, multiple=8,
                                      blocked_bm=4)
     assert meta9.blocked_bm_v == 0 and "blk_v_hd_row" not in data9
-    # round 5 (VERDICT r4 #3): under a shard-aligned mesh the two-tier
-    # split DOES engage — the tail keeps the shard_map-local kernel stack
-    # (carry mode, not the round-2 fallback) and the head ops run at jit
-    # level, GSPMD-partitioned; an unskewed mesh problem stays single-tier
+    # under a shard-aligned mesh the two-tier split engages too — the tail
+    # keeps the shard_map-local passes (carry mode, not the fallback) and
+    # the head ops run at jit level, GSPMD-partitioned; an unskewed mesh
+    # problem stays single-tier
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "8")
     meta10, data10 = to_device_problem(prob8, row_pad=1, multiple=S * BM,
                                        blocked_bm=BM, blocked_shards=S)
@@ -956,7 +536,6 @@ def test_solver_perf_gates(rng, monkeypatch):
     s10 = FFMSolver(meta10, data10, mesh=mesh)
     assert s10.hd_v and "blk_v_hd_row" in data10
     assert s10.blk_yt and s10.blk_v_on and s10.pregather_v
-    assert s10.kt_u and s10.kt_v
     monkeypatch.delenv("OCFFM_HEAD_CHUNK")
     assert "blk_u_hd_row" not in data6 and "blk_v_hd_row" not in data6
 
@@ -970,40 +549,99 @@ def test_solver_perf_gates(rng, monkeypatch):
         S9, it9 = s9._cg(lambda V: V * jnp.float32(1e-25), G9, D9)
         assert bool(jnp.all(jnp.isfinite(S9)))
 
-    # CG minor-dim packing (OCFFM_CG_PACK): forced packing must reproduce
-    # the unpacked recurrence (same floats, packed carry layout; only XLA
-    # reduction order in the alpha/beta sums differs — f64 noise).  k=64
-    # packs 2 rows per 128-lane row; even table dims keep p engaged.
-    prob_p, params_p = make_problem(rng, Du=(8, 6), Dv=(6, 4), k=64)
-    meta_p2, data_p2 = to_device_problem(prob_p, multiple=4)
-    from conftest import oracle_params_to_jax
-    monkeypatch.setenv("OCFFM_CG_PACK", "0")
-    s_a = FFMSolver(meta_p2, data_p2)
-    st_a = s_a.refresh_caches(
-        {"params": oracle_params_to_jax(params_p)})
-    ref_p = s_a.epoch(st_a)
-    monkeypatch.setenv("OCFFM_CG_PACK", "1")
-    s_b = FFMSolver(meta_p2, data_p2)
-    st_b = s_b.refresh_caches(
-        {"params": oracle_params_to_jax(params_p)})
-    got_p = s_b.epoch(st_b)
-    import numpy as _np
-    for f12 in ref_p["params"]:
-        _np.testing.assert_allclose(
-            _np.asarray(got_p["params"][f12]["W"]),
-            _np.asarray(ref_p["params"][f12]["W"]), rtol=1e-6, atol=1e-10)
-    monkeypatch.delenv("OCFFM_CG_PACK")
-
-    # static HBM budget (OCFFM_HBM_GB engages it off-TPU when set): ample
-    # HBM keeps the stack on; the donation-aware model must NOT zero the
-    # cap when the state fits (the 2x-state model cost 4x at 1M x 500k);
-    # a tiny HBM zeroes the cap and the stack falls back
+    # device-memory budget (OCFFM_HBM_GB overrides the device's own
+    # bytes_limit; the CPU reports none): ample memory keeps the stack on;
+    # the donation-aware model must NOT zero the cap when the state fits;
+    # a tiny device zeroes the cap and the stack falls back
     monkeypatch.setenv("OCFFM_HBM_GB", "16")
     s10 = FFMSolver(meta, data)
     assert s10.pregather_u and s10.pregather_v and s10.blk_yt
     assert s10.pregather_cap > 0
-    monkeypatch.setenv("OCFFM_HBM_GB", "0.0001")
+    monkeypatch.setenv("OCFFM_HBM_GB", "0.000001")
     s11 = FFMSolver(meta, data)
     assert s11.pregather_cap == 0
     assert not s11.pregather_u and not s11.blk_yt
     monkeypatch.delenv("OCFFM_HBM_GB")
+
+
+GRAD_HV_CONFIGS = [dict(), dict(self_side=False), dict(freq=True),
+                   dict(cg_precond="jacobi")]
+
+
+def _grad_hv_vs_oracle(rng, cfg, blocked_bm):
+    """Worst relative error of FFMSolver.grad_hv (every half-solve's G and
+    Hv(G) at one state) against the fp64 oracle: the comparison
+    chip_smoke.py runs on the card."""
+    from one_class_ffm_tpu.solver import oracle
+    from one_class_ffm_tpu.solver.jax_solver import FFMSolver
+
+    kw = dict(cg_precond="none")
+    kw.update(cfg)
+    prob, params = oracle.make_problem(rng, m=64, n=32, Du=(64, 12),
+                                       Dv=(32, 9), k=16, density=0.15, **kw)
+    meta, data = oracle.to_device_problem(prob, dtype=np.float32,
+                                          multiple=16, blocked_bm=blocked_bm)
+    assert (meta.blocked_bm_u > 0) == (blocked_bm > 0)
+    solver = FFMSolver(meta, data)
+    state = solver.refresh_caches(
+        {"params": oracle.oracle_params_to_jax(params, jnp.float32)})
+    got = solver.grad_hv(state)
+    worst = 0.0
+    for b in meta.layout.epoch_order():
+        for first in (True, False):
+            G_ref, hv_ref = oracle.grad_and_hv(prob, params, b, first)
+            G, hv = got[f"{b.f12}{'W' if first else 'H'}"]
+            d = b.d1 if first else b.d2
+            G = np.asarray(G, np.float64)[:d]
+            for a, r in ((G, G_ref), (np.asarray(hv, np.float64)[:d],
+                                      hv_ref(G))):
+                worst = max(worst, float(np.max(np.abs(a - r))
+                                         / np.max(np.abs(r))))
+    return worst
+
+
+@pytest.mark.parametrize("blocked_bm", [0, 16])
+@pytest.mark.parametrize("cfg", GRAD_HV_CONFIGS)
+def test_grad_hv_matches_oracle(rng, cfg, blocked_bm):
+    """One gradient and one Hv per half-solve, plain COO and blocked
+    layouts, at f32 against the fp64 oracle."""
+    assert _grad_hv_vs_oracle(rng, cfg, blocked_bm) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_grad_hv_matches_oracle_on_gpu(rng):
+    """The same comparison compiled for the card at float32 precision
+    (chip_smoke.py phase (b) runs it on every configuration)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU")
+    assert _grad_hv_vs_oracle(rng, {}, 16) <= 1e-4
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(self_side=False),
+                                 dict(cg_precond="jacobi")])
+def test_solver_blocked_small_d_fields_match_oracle(rng, monkeypatch, cfg):
+    """The XLA blocked path on small non-identity fields (every field of
+    the oracle problems: multi-valued rows, D far below the row count) with
+    pregather, blocked gap and slot carry on matches the fp64 oracle over
+    two epochs."""
+    from conftest import make_problem, oracle_params_to_jax, to_device_problem
+    from one_class_ffm_tpu.solver import oracle
+    from one_class_ffm_tpu.solver.jax_solver import FFMSolver
+
+    monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
+    prob, params = make_problem(rng, m=24, n=16, Du=(5, 3), Dv=(4, 6),
+                                max_nnz=3, **cfg)
+    meta, data = to_device_problem(prob, multiple=4, blocked_bm=4)
+    assert not any(meta.ident_u) and not any(meta.ident_v)
+    solver = FFMSolver(meta, data)
+    assert solver.blk_yt and solver.blk_gap
+    state = solver.refresh_caches({"params": oracle_params_to_jax(params)})
+    ref = params
+    for _ in range(2):
+        ref = oracle.oracle_epoch(prob, ref)
+        state = solver.epoch(state)
+    for f12 in ref["W"]:
+        for t in ("W", "H"):
+            np.testing.assert_allclose(
+                np.asarray(state["params"][f12][t]), ref[t][f12],
+                rtol=1e-6, atol=1e-9)

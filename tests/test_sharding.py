@@ -61,7 +61,7 @@ def test_sharded_epoch_matches_single_device(rng, eight_devices, cfg):
 @pytest.mark.parametrize("cfg", [dict(), dict(self_side=False)])
 def test_sharded_blocked_epoch_matches_plain(rng, eight_devices, cfg):
     """The shard-aligned blocked path (pad_labels shard_rows= + shard_map-
-    local one-hot MXU passes) must produce the same parameters as the plain
+    local one-hot passes) must produce the same parameters as the plain
     single-device epoch — the whole layout + shard_map machinery is a pure
     performance transform."""
     S, BM = 8, 4
@@ -75,9 +75,8 @@ def test_sharded_blocked_epoch_matches_plain(rng, eight_devices, cfg):
     meta_b, data_b = to_device_problem(
         prob, row_pad=1, multiple=S * BM, blocked_bm=BM, blocked_shards=S)
     assert meta_b.blocked_shards == S and meta_b.blocked_bm_u == BM
-    # round 4: the v-side layout is built under shards too — with both
-    # layouts the slot-order carry engages and BOTH sides' passes run
-    # shard-locally (row-major kernels here; kt is TPU/interpret-gated)
+    # the v-side layout is built under shards too — with both layouts the
+    # slot-order carry engages and BOTH sides' passes run shard-locally
     assert meta_b.blocked_bm_v == BM
     sdata = shard_data(data_b, mesh)
     ssolver = FFMSolver(meta_b, sdata, mesh=mesh)
@@ -96,57 +95,6 @@ def test_sharded_blocked_epoch_matches_plain(rng, eight_devices, cfg):
             np.asarray(got["params"][f12]["H"]), np.asarray(blk["H"]),
             rtol=1e-6, atol=1e-9,
         )
-
-
-@pytest.mark.parametrize("cfg", [dict(), dict(self_side=False)])
-def test_sharded_kt_fused_carry_epoch_matches_plain(
-        rng, eight_devices, monkeypatch, cfg):
-    """The FULL round-3 kernel stack under the mesh (kt + fused table
-    kernels in interpret mode + pregather both sides + slot-order carry +
-    blocked gap, all shard_map-local with psum'd table outputs) must match
-    the plain single-device epoch — multi-chip runs at round-3 kernel
-    speed, not the round-2 fallback (VERDICT r3 #1)."""
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
-    S, BM = 8, 4
-    prob, params = make_problem(rng, m=19, n=13, **cfg)
-    meta_p, data_p = to_device_problem(prob, row_pad=1, multiple=S * BM)
-    plain = FFMSolver(meta_p, data_p)
-    st = plain.refresh_caches({"params": oracle_params_to_jax(params)})
-    ref = plain.epoch(plain.epoch(st))
-
-    mesh = make_mesh(S)
-    meta_b, data_b = to_device_problem(
-        prob, row_pad=1, multiple=S * BM, blocked_bm=BM, blocked_shards=S)
-    sdata = shard_data(data_b, mesh)
-    ssolver = FFMSolver(meta_b, sdata, mesh=mesh)
-    # the whole stack must actually be ON (asserted, not assumed)
-    assert ssolver.kt_u and ssolver.kt_v
-    assert ssolver.pregather_u and ssolver.pregather_v
-    assert ssolver.blk_gap and ssolver.blk_yt and ssolver.blk_v_on
-    b0 = next(b for b in meta_b.layout.cross_blocks())
-    assert ssolver._fused_tbl_side(
-        b0, True, meta_b.pad_d(b0.d1), "hv_cross", kt=True) is not None
-    sstate = shard_state(
-        ssolver.refresh_caches({"params": oracle_params_to_jax(params)}),
-        mesh)
-    got = ssolver.epoch(ssolver.epoch(sstate))
-    for f12, blk in ref["params"].items():
-        np.testing.assert_allclose(
-            np.asarray(got["params"][f12]["W"]), np.asarray(blk["W"]),
-            rtol=1e-6, atol=1e-9,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got["params"][f12]["H"]), np.asarray(blk["H"]),
-            rtol=1e-6, atol=1e-9,
-        )
-    # the carried residual stays consistent: stream reconstruction matches
-    # the plain solver's stream residual on every REAL entry
-    keep = np.asarray(data_b["pos_w"]) > 0
-    np.testing.assert_allclose(
-        np.asarray(ssolver.yt_stream(got))[keep],
-        np.asarray(plain.yt_stream(ref))[_stream_map(data_b, data_p)][keep],
-        rtol=1e-6, atol=1e-9)
 
 
 def _stream_map(data_aligned, data_plain):
@@ -444,19 +392,16 @@ def test_sharded_evaluator_matches(rng, eight_devices):
 
 
 def test_sharded_epoch_collective_census(rng, eight_devices, monkeypatch):
-    """Pin the sharded solve's collective budget in the compiled HLO
-    (VERDICT r4 #8).  The design claim (docs/PERF.md "Shard-aligned blocked
-    stream"): per half-solve, ONE psum of the fused kernels' table-space
-    output inside the CG loop; the B-row all-gather (pregather) and the
-    carry's cross-order propagation run OUTSIDE the loop.  A GSPMD
+    """Pin the sharded solve's collective budget in the compiled HLO.  The
+    design claim: per half-solve, ONE all-reduce inside the CG loop (the
+    table-space reduction of the Hv pass); the B-row all-gather (pregather)
+    and the carry's cross-order propagation run OUTSIDE the loop.  A GSPMD
     regression that silently re-shards per CG iteration (e.g. an all-gather
     of the stream inside the while body) multiplies per-iteration
     interconnect traffic and is invisible to correctness tests — catch it
     on CPU by counting collectives per while-body computation."""
     import re
 
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
     S, BM = 8, 4
     prob, params = make_problem(rng, m=19, n=13)
     meta_b, data_b = to_device_problem(
@@ -464,7 +409,7 @@ def test_sharded_epoch_collective_census(rng, eight_devices, monkeypatch):
     mesh = make_mesh(S)
     sdata = shard_data(data_b, mesh)
     ssolver = FFMSolver(meta_b, sdata, mesh=mesh)
-    assert ssolver.blk_yt and ssolver.kt_u and ssolver.kt_v  # full stack
+    assert ssolver.blk_yt and ssolver.pregather_v  # full blocked stack
     sstate = shard_state(
         ssolver.refresh_caches({"params": oracle_params_to_jax(params)}),
         mesh)
@@ -494,7 +439,7 @@ def test_sharded_epoch_collective_census(rng, eight_devices, monkeypatch):
     for b in bodies:
         colls = comp_colls.get(b, [])
         # exactly the designed per-iteration collective: one all-reduce
-        # (the fused kernels' table-space psum) — and NEVER an all-gather
+        # (the table-space reduction) — and NEVER an all-gather
         assert colls == ["all-reduce"], (b, colls)
 
     # whole-epoch totals stay within the documented budget (generous

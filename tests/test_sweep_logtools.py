@@ -115,6 +115,64 @@ def test_sweep_executes_real_job(tmp_path):
     assert "p@5" in best and "ploss" in best
 
 
+class _FakeProc:
+    """Stands in for a job process: records its card, finishes on the
+    second poll."""
+
+    running = []
+    peak = 0
+    cards = []
+
+    def __init__(self, cmd, stdout=None, stderr=None, env=None):
+        self.card = (env or {}).get("CUDA_VISIBLE_DEVICES")
+        self.polls = 0
+        self.returncode = None
+        _FakeProc.cards.append(self.card)
+        _FakeProc.running.append(self)
+        _FakeProc.peak = max(_FakeProc.peak, len(_FakeProc.running))
+        live = [p.card for p in _FakeProc.running if p.card is not None]
+        assert len(live) == len(set(live)), f"two jobs on one card: {live}"
+
+    def poll(self):
+        self.polls += 1
+        if self.polls >= 2 and self.returncode is None:
+            self.returncode = 0
+            _FakeProc.running.remove(self)
+        return self.returncode
+
+
+@pytest.mark.parametrize("jobs,cards,peak", [(4, ["0", "1"], 2),
+                                             (1, ["0", "1", "2"], 1),
+                                             (3, ["5"], 1)])
+def test_sweep_one_job_per_card(tmp_path, monkeypatch, jobs, cards, peak):
+    """On GPUs every running job gets a card of its own (one JAX process
+    per card) and ``jobs`` is capped at the number of cards."""
+    from one_class_ffm_tpu import sweep
+
+    _FakeProc.running, _FakeProc.peak, _FakeProc.cards = [], 0, []
+    monkeypatch.setattr(sweep.subprocess, "Popen", _FakeProc)
+    monkeypatch.setattr(sweep.time, "sleep", lambda s: None)
+    spec = make_spec(tmp_path, jobs=jobs, omega=[0.5, 0.25, 0.125, 2.0])
+    ran, skipped, failed = run_sweep(spec, echo=lambda *_: None,
+                                     cards=cards)
+    assert (ran, skipped, failed) == (4, 0, 0)
+    assert _FakeProc.peak == peak
+    assert set(_FakeProc.cards) <= set(cards) and None not in _FakeProc.cards
+
+
+def test_sweep_cpu_jobs_take_no_card(tmp_path, monkeypatch):
+    from one_class_ffm_tpu import sweep
+
+    _FakeProc.running, _FakeProc.peak, _FakeProc.cards = [], 0, []
+    monkeypatch.setattr(sweep.subprocess, "Popen", _FakeProc)
+    monkeypatch.setattr(sweep.time, "sleep", lambda s: None)
+    spec = make_spec(tmp_path, jobs=3, omega=[0.5, 0.25, 0.125],
+                     extra_args=["--platform", "cpu"])
+    assert sweep.job_cards(spec, ["0"]) == []
+    run_sweep(spec, echo=lambda *_: None, cards=["0"])
+    assert _FakeProc.peak == 3 and _FakeProc.cards == [None] * 3
+
+
 def test_parse_new_and_old_row_formats():
     r = logtools.parse_row(NEW_ROW)
     assert r.epoch == 10

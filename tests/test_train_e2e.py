@@ -427,30 +427,6 @@ def test_blocked_positive_ops_match_plain(dataset, tmp_path):
                                    rtol=1e-8, atol=1e-10)
 
 
-def test_trainer_kt_fused_interpret_matches_plain(dataset, tmp_path,
-                                                  monkeypatch):
-    """Product surface under the full round-3 kernel stack (kt + fused
-    table kernels + pregather + slot carry, interpret mode on CPU): the
-    Trainer produces the same metrics as the plain-op path at f64."""
-    cfg = make_cfg(dataset, tmp_path, nr_pass=4, eval_every=4,
-                   row_multiple=8, blocked_bm=8)
-    tr_plain = Trainer(cfg)
-    tr_plain.init_state()
-    tr_plain.run(log=lambda *_: None)
-    m_plain = tr_plain.validate()
-
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
-    monkeypatch.setenv("OCFFM_BLK_PREGATHER", "1")
-    tr_kt = Trainer(cfg)
-    tr_kt.init_state()
-    assert tr_kt.solver.kt and (tr_kt.solver.kt_u or tr_kt.solver.kt_v)
-    tr_kt.run(log=lambda *_: None)
-    m_kt = tr_kt.validate()
-    for key in ("p@5", "ndcg@10", "ploss", "auc"):
-        assert abs(m_kt[key] - m_plain[key]) < 1e-6, (key, m_kt, m_plain)
-
-
 def test_nan_guard_trips_on_poisoned_state(dataset, tmp_path):
     """Finiteness tripwire (VERDICT r4 #6): a NaN table row must abort the
     run at the NEXT eval with the offending block named — not train to

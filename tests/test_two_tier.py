@@ -2,9 +2,9 @@
 
 A zipf-style catalog has a handful of power rows whose positive counts set
 MAXC for every block — round 3 rejected the whole blocked layout past a 2x
-pad ratio and fell back to plain COO ops, losing the kernel stack exactly on
+pad ratio and fell back to plain COO ops, losing the blocked path exactly on
 the realistic (skewed) datasets.  The two-tier split keeps the tail on the
-blocked/kt/fused kernels (head entries dropped, so MAXC collapses) and
+blocked ops (head entries dropped, so MAXC collapses) and
 streams the head rows' entries through dense chunked ops
 (ops.head_* — see ops.make_blocked_layout ``head_chunk``).
 
@@ -86,27 +86,15 @@ def test_two_tier_layout_invariants(rng):
                                drop=drop, head_chunk=0) is None
 
 
-MODE_COMBOS = [
-    # (OCFFM_KT, OCFFM_FUSED_TBL, OCFFM_BLK_YT) — the full interpret stack,
-    # the plain-XLA blocked path without the carry, and carry-only
-    ("interpret", "interpret", "auto"),
-    ("0", "0", "0"),
-    ("0", "0", "auto"),
-]
-
-
-@pytest.mark.parametrize("kt,fused,yt", MODE_COMBOS)
+@pytest.mark.parametrize("yt", ["0", "auto"])  # OCFFM_BLK_YT: carry off/on
 @pytest.mark.parametrize("both_sides", [False, True])
-def test_two_tier_epoch_matches_plain(rng, monkeypatch, kt, fused, yt,
-                                      both_sides):
+def test_two_tier_epoch_matches_plain(rng, monkeypatch, yt, both_sides):
     """Two epochs on the two-tier layout == the plain solver to 1e-6, with
     the head tier asserted ON (v side always; both sides in the dense-skew
-    variant) across kernel/carry mode combos."""
+    variant), with and without the slot-order carry."""
     from one_class_ffm_tpu.solver.jax_solver import FFMSolver
 
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "8")
-    monkeypatch.setenv("OCFFM_KT", kt)
-    monkeypatch.setenv("OCFFM_FUSED_TBL", fused)
     monkeypatch.setenv("OCFFM_BLK_YT", yt)
     prob, params = _skewed_problem(
         rng, density=0.08 if both_sides else 0.3, u_head=both_sides)
@@ -122,9 +110,9 @@ def test_two_tier_epoch_matches_plain(rng, monkeypatch, kt, fused, yt,
     assert solver.hd_v  # the power item engaged the head tier
     if both_sides:
         assert solver.hd_u
-    if kt == "interpret":
-        # the tail MAXC collapse is what re-enables the kernel stack
-        assert solver.kt_u and solver.kt_v and solver.blk_yt
+    if yt == "auto":
+        # the tail MAXC collapse keeps the whole blocked stack on
+        assert solver.blk_yt and solver.pregather_u and solver.pregather_v
     st2 = solver.refresh_caches({"params": oracle_params_to_jax(params)})
     got = solver.epoch(solver.epoch(st2))
     for f12, blk in ref["params"].items():
@@ -143,8 +131,6 @@ def test_two_tier_objective_and_refresh(rng, monkeypatch):
     from one_class_ffm_tpu.solver.jax_solver import FFMSolver
 
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "8")
-    monkeypatch.setenv("OCFFM_KT", "interpret")
-    monkeypatch.setenv("OCFFM_FUSED_TBL", "interpret")
     prob, params = _skewed_problem(rng)
     meta_p, data_p = to_device_problem(prob, row_pad=1, multiple=8)
     meta_b, data_b = to_device_problem(prob, row_pad=1, multiple=8,
@@ -168,16 +154,14 @@ def test_two_tier_objective_and_refresh(rng, monkeypatch):
                                rtol=1e-8, atol=1e-10)
 
 
-@pytest.mark.parametrize("kt,fused", [("interpret", "interpret"),
-                                      ("0", "0")])
 @pytest.mark.parametrize("both_sides", [False, True])
-def test_two_tier_epoch_matches_plain_under_mesh(rng, monkeypatch, kt,
-                                                 fused, both_sides):
-    """Round 5 (VERDICT r4 #3): a popularity-skewed problem on the 8-device
-    CPU mesh runs the two-tier head split WITH the sharded kernel stack
-    (carry mode, shard_map-local tail passes; head ops at jit level,
-    GSPMD-partitioned) and matches the plain single-device epoch to 1e-6 —
-    skew no longer knocks multi-chip back to the round-2 fallback."""
+def test_two_tier_epoch_matches_plain_under_mesh(rng, monkeypatch,
+                                                 both_sides):
+    """A popularity-skewed problem on the 8-device CPU mesh runs the
+    two-tier head split WITH the sharded blocked passes (carry mode,
+    shard_map-local tail passes; head ops at jit level, GSPMD-partitioned)
+    and matches the plain single-device epoch to 1e-6 — skew does not knock
+    the mesh back to the sharded fallback."""
     import jax
 
     from one_class_ffm_tpu.parallel import make_mesh, shard_data, shard_state
@@ -186,8 +170,6 @@ def test_two_tier_epoch_matches_plain_under_mesh(rng, monkeypatch, kt,
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     monkeypatch.setenv("OCFFM_HEAD_CHUNK", "8")
-    monkeypatch.setenv("OCFFM_KT", kt)
-    monkeypatch.setenv("OCFFM_FUSED_TBL", fused)
     S, BM = 8, 4
     # larger than the single-shard cases: the shard-aligned stream's pads
     # raise the layout's pad-ratio denominator, so the skew must be
@@ -208,10 +190,8 @@ def test_two_tier_epoch_matches_plain_under_mesh(rng, monkeypatch, kt,
     assert ssolver.hd_v  # the power item engaged the head tier
     if both_sides:
         assert ssolver.hd_u
-    # carry mode with the head tier ON — not the round-2 fallback
+    # carry mode with the head tier ON — not the sharded fallback
     assert ssolver.blk_yt and ssolver.blk_v_on
-    if kt == "interpret":
-        assert ssolver.kt_u and ssolver.kt_v
     sstate = shard_state(
         ssolver.refresh_caches({"params": oracle_params_to_jax(params)}),
         mesh)
